@@ -1,0 +1,17 @@
+"""Shared type aliases for cmad_tpu_torch (counterpart of
+``cmad_tpu/typing.py``)."""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+Tensor = torch.Tensor
+Scalar = float | Tensor
+PyTree = Any
+Params = dict[str, Any]
+
+# A transform leaf: None (identity), [lo, hi] (bounds), or [ref] (log).
+Transform = list[float] | None
+ActiveFlags = PyTree
+Transforms = PyTree
