@@ -5,16 +5,29 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels of ``cmad_tpu_torch/csrc`` (nvcc, into
+It builds the four CUDA kernels of ``cmad_tpu_torch/csrc`` (nvcc, into
 ``build/cmad_tpu_torch/``), checks each against its plain PyTorch version
-on the card, drives the port's public entry points at the headline size
-(the history drive at 2,097,152 points x 64 steps, and the FE dispatch
-chain at 4,194,304 points x 8 steps), checks the answers against the
-plain path and against the yield condition, and prints timings of the
-kernel and plain paths measured with CUDA events. It prints one line per
-phase, then a JSON line with one entry per kernel, then the final JSON
-line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
-script exits non-zero; without a CUDA device it exits non-zero at once.
+on the card, drives the port's public entry points at the headline sizes
+and checks the answers against the plain path and against the yield
+condition, and prints timings of the kernel and plain paths measured with
+CUDA events. The paths driven:
+
+- the SoA history drive at 2,097,152 points x 64 steps and the FE
+  dispatch chain at 4,194,304 points x 8 steps (``j2_soa_history``,
+  ``j2_soa_step``);
+- the material-point models' batched return map,
+  ``make_batched_return_map(model, specialize=True)``, at 4,194,304
+  points x 2 chained steps for the rate form (``j2_aos_step``) and the
+  total form (``j2_total_step``);
+- the generic implicit-function Newton, ``make_batched_return_map(model)``,
+  at 1,048,576 points x 2 steps, and its gradient against autograd
+  through the plain radial return.
+
+It prints one line per phase (each with its wall seconds), the card's
+name and power limit, a JSON line with one entry per kernel, then the
+final JSON line ``{"ok": true, "device": {...}}``. Any failed check
+raises, and the script exits non-zero; without a CUDA device it exits
+non-zero at once.
 """
 from __future__ import annotations
 
@@ -41,6 +54,9 @@ N_HIST = 262_147            # parity of j2_soa_history
 T_HIST = (13, 64)
 N_DRIVE, T_DRIVE = 2_097_152, 64   # the history-drive headline
 N_FE, FE_STEPS, FE_Q = 4_194_304, 8, 8
+N_MP = 4_194_304            # the batched return map (bench.py:355)
+N_GENERIC = N_MP // 4       # the generic Newton (bench.py:650-664)
+N_GRAD = 65_536
 ROUNDS, REPS = 3, 5         # timing: best of 3 rounds of 5 chained calls
 
 # bounds: per state row, max|kernel - plain| <= bound * max(1, max|row|)
@@ -48,6 +64,38 @@ STEP_BOUND = {"float64": 1e-11, "float32": 1e-5}   # nvcc contracts FMAs
 HIST_BOUND = {"float64": 1e-10, "float32": 1e-4}   # error grows over T
 GRAD_RTOL = 1e-8
 YIELD_TOL = 1e-9            # |phi - Y - H(alpha)| <= YIELD_TOL * Y
+# generic Newton vs radial return: the Newton stops once ||r|| < abs_tol
+# (1e-14 in f64), and its stress rows are scaled by 1 / (2 mu), so it
+# resolves the stress to about 2 mu abs_tol = 1.5e-9 (the CPU tests'
+# atol 1e-9 holds at 256 points; 65,536 points on the CPU reach 9.8e-10)
+GENERIC_TOL_FACTOR = 2.0    # bound = GENERIC_TOL_FACTOR * 2 mu * abs_tol
+# the generic Newton's implicit-function gradient vs autograd through
+# the plain radial return's 8 unrolled scalar iterations: both converge
+# to f64 rounding, measured 1e-13 on the CPU at 4096 points
+MP_GRAD_RTOL = 1e-9
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, outside the
+# tensor cores): bytes/s and operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"float64": 34e12, "float32": 67e12}
+# operations per point of one radial return, exp and divide counted as
+# one each: the trial stress and corrector outside the Newton loop, and
+# one Newton iteration (8 per plastic point)
+OPS_STEP, OPS_NEWTON = 45, 12
+
+# the gradient phase's active parameters: E, Y, S, D
+GRAD_FLAGS = {
+    "rotation matrix": False, "elastic": {"E": True, "nu": False},
+    "plastic": {"effective stress": {"J2": False},
+                "flow stress": {"initial yield": {"Y": True},
+                                "hardening": {"voce": {"S": True,
+                                                       "D": True}}}}}
+GRAD_TRANSFORMS = {
+    "rotation matrix": None, "elastic": {"E": None, "nu": None},
+    "plastic": {"effective stress": {"J2": None},
+                "flow stress": {"initial yield": {"Y": None},
+                                "hardening": {"voce": {"S": None,
+                                                       "D": None}}}}}
 
 SOURCE = "cmad_tpu_torch/csrc/j2_radial_return.cu"
 PALLAS = "cmad_tpu/ops/pallas_radial_return.py"
@@ -77,6 +125,46 @@ def check_rows(phase, label, out, ref, bound) -> float:
     if not rel_err <= bound:
         raise RuntimeError(f"{phase} {label}: {rel_err} > {bound}")
     return abs_err
+
+
+def check_cols(phase, label, out, ref, bound) -> float:
+    """Per column of (N, ...) arrays: max|out - ref| <= bound *
+    max(1, max|ref column|). Returns the max abs error."""
+    import torch
+
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{phase} {label}: bad output {tuple(out.shape)}")
+    a, b = out.reshape(out.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    diff = (a - b).abs().amax(dim=0)
+    scale = b.abs().amax(dim=0).clamp(min=1.0)
+    abs_err, rel_err = float(diff.max()), float((diff / scale).max())
+    say(phase, f"{label}: max_abs_err={abs_err:.3e} "
+               f"max_col_scaled_err={rel_err:.3e} bound={bound:g}")
+    if not rel_err <= bound:
+        raise RuntimeError(f"{phase} {label}: {rel_err} > {bound}")
+    return abs_err
+
+
+def bound_ms(nbytes: float, nops: float, dtype_name: str):
+    """The least time the card could take: (ms, "bytes" or
+    "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def radial_ops(points: float, plastic_points: float) -> float:
+    return OPS_STEP * points + 8 * OPS_NEWTON * plastic_points
+
+
+def mises_3x3(s):
+    """von Mises stress of (..., 3, 3) tensors."""
+    import torch
+
+    tr = torch.diagonal(s, dim1=-2, dim2=-1).sum(-1) / 3.0
+    d = s - tr[..., None, None] * torch.eye(3, dtype=s.dtype,
+                                            device=s.device)
+    return torch.sqrt(1.5 * (d * d).sum(dim=(-2, -1)))
 
 
 def best_ms(fn, x0, sync) -> float:
@@ -109,18 +197,44 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script runs "
                          "only on a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cmad_tpu_torch.config import newton_tols
     from cmad_tpu_torch.fem.xi_carrier import pack_xi, unpack_xi
+    from cmad_tpu_torch.models.global_fields import GlobalFieldsAtPoint
+    from cmad_tpu_torch.models.nonlinear_solver import (
+        make_newton_solve_with_stats,
+    )
+    from cmad_tpu_torch.models.small_elastic_plastic import (
+        SmallElasticPlastic,
+    )
+    from cmad_tpu_torch.models.small_rate_elastic_plastic import (
+        SmallRateElasticPlastic,
+    )
     from cmad_tpu_torch.ops import _build
     from cmad_tpu_torch.ops import cuda_radial_return as cuda_rr
     from cmad_tpu_torch.ops.j2_radial_return import (
         j2_voce_scalars,
+        make_j2_radial_return,
+        make_j2_radial_return_total,
         pack_state_soa,
         soa_step_scalars,
         strain_increment_soa,
     )
     from cmad_tpu_torch.ops.j2_soa_ad import make_soa_step_ad
-    from cmad_tpu_torch.ops.return_map import make_j2_history_drive
-    from cmad_tpu_torch.parameters.parameters import parameters_from_numpy
+    from cmad_tpu_torch.ops.return_map import (
+        make_batched_return_map,
+        make_j2_history_drive,
+    )
+    from cmad_tpu_torch.parameters.parameters import (
+        Parameters,
+        parameters_from_numpy,
+    )
+
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        say(phase, f"wall {now - clock[0]:.1f} s")
+        clock[0] = now
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -150,9 +264,14 @@ def main() -> int:
     def zero_state(n, dtype):
         return pack_state_soa(torch.zeros((n, 7), device=dev, dtype=dtype))
 
-    def plain_drive(xi, de_hist, sc):
+    def plain_drive(xi, de_hist, sc, plastic_updates=None):
+        """The plain step looped over the history; appends each step's
+        count of plastic points to ``plastic_updates`` if given."""
         for t in range(de_hist.shape[0]):
-            xi = soa_step_scalars(xi, de_hist[t], sc)
+            new = soa_step_scalars(xi, de_hist[t], sc)
+            if plastic_updates is not None:
+                plastic_updates.append(int((new[6] > xi[6]).sum()))
+            xi = new
         return xi
 
     def advanced(n, dtype):
@@ -173,6 +292,7 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", line.strip())
+    lap("build")
 
     results = {}
 
@@ -210,6 +330,7 @@ def main() -> int:
         STEP_BOUND["float64"])
     del xi, de
     sync()
+    lap("parity-step")
 
     # ---------------- 4. parity-history ----------------
     for dt in dtypes:
@@ -228,9 +349,11 @@ def main() -> int:
                        ref, HIST_BOUND[name])
             del xi0, de_hist, out, ref
     sync()
+    lap("parity-history")
 
     # ---------------- 5. history-drive (main path) ----------------
     cuda_rr.reset_launch_counts()
+    hist_plastic: list[int] = []
     drive = make_j2_history_drive(params[torch.float64])
     drive_wide = make_j2_history_drive(params[torch.float64], layout="wide")
     timings = {}
@@ -243,12 +366,14 @@ def main() -> int:
             de_hist = (factor * de).expand(T_DRIVE, 8, N_DRIVE).contiguous()
             xi0 = zero_state(N_DRIVE, dt)
             out = drive(xi0, de_hist, pv)
-            ref = plain_drive(xi0, de_hist, sc)
+            headline64 = name == "float64" and regime == "headline"
+            ref = plain_drive(xi0, de_hist, sc,
+                              hist_plastic if headline64 else None)
             frac = float((out[6] > 0).double().mean())
             label = f"{name} {regime} N={N_DRIVE} T={T_DRIVE}"
             err = check_rows("history-drive", label, out, ref,
                              HIST_BOUND[name])
-            if name == "float64" and regime == "headline":
+            if headline64:
                 results["hist_err"] = err
             # the TPU's wide kernels K7/K8 are this launch on a view
             wide = drive_wide(cuda_rr._to_wide(xi0), cuda_rr._to_wide(de_hist),
@@ -270,6 +395,7 @@ def main() -> int:
             sync()
             torch.cuda.empty_cache()
         del de
+    lap("history-drive")
 
     # ---------------- 6. fe-dispatch (main path) ----------------
     step_ad = make_soa_step_ad()
@@ -337,6 +463,8 @@ def main() -> int:
         step_ms = best_ms(lambda x: step_ad(x, de, scalars[dt]), xc0, sync)
         step_plain = best_ms(lambda x: soa_step_scalars(x, de, scalars[dt]),
                              xc0, sync)
+        step_plastic = int((soa_step_scalars(xc0, de, scalars[dt])[6] > 0)
+                           .sum())
         say("fe-dispatch", f"one step N={N_FE}: kernel {step_ms:.4f} ms, "
                            f"plain {step_plain:.4f} ms")
         timings[("fe", "float64")] = (ms, plain)
@@ -345,6 +473,7 @@ def main() -> int:
     del xi_aos, de, xc0
     sync()
     torch.cuda.empty_cache()
+    lap("fe-dispatch")
 
     # ---------------- 7. consistency ----------------
     dt = torch.float64
@@ -383,25 +512,272 @@ def main() -> int:
         raise RuntimeError("consistency: the return map misses the oracle")
     del xi, de, out, trial
     sync()
+    lap("consistency")
 
-    # ---------------- 8. launches ----------------
-    say("launches", f"main path (history-drive + fe-dispatch): {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise RuntimeError(f"launches: a kernel never ran: {launches}")
+    # ---------------- 8. parity-aos, parity-total ----------------
+    def sym_grad(n, dtype):
+        """The benchmark's displacement gradient (bench.py:404-411):
+        symmetric, N(0, 1.5e-3)."""
+        g = 1.5e-3 * torch.randn((n, 3, 3), generator=gen, device=dev,
+                                 dtype=dtype)
+        return (0.5 * (g + g.transpose(1, 2))).contiguous()
 
+    def aos_zero(n, dtype):
+        return torch.zeros((n, 7), device=dev, dtype=dtype)
+
+    aos_kernel = {
+        "rate": lambda x, g, g0, sc: cuda_rr.aos_step_cuda(x, g, g0, sc),
+        "total": lambda x, g, g0, sc: cuda_rr.total_step_cuda(x, g, sc)}
+    aos_plain = {"rate": make_j2_radial_return,
+                 "total": make_j2_radial_return_total}
+    for form, phase in (("rate", "parity-aos"), ("total", "parity-total")):
+        errs = []
+        for dt in dtypes:
+            name = str(dt).split(".")[-1]
+            plain = aos_plain[form](params[dt])
+            pv, sc = params[dt].values, scalars[dt]
+            g = sym_grad(N_STEP, dt)
+            z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+                aos_zero(N_STEP, dt)
+            k1 = aos_kernel[form](x0, g, z, sc)
+            p1 = plain(x0, g, z, pv)
+            k2 = aos_kernel[form](k1[0], g2, g, sc)
+            p2 = plain(p1[0], g2, g, pv)
+            fracs = [float((k[0][:, 6] > x[:, 6]).double().mean())
+                     for k, x in ((k1, x0), (k2, k1[0]))]
+            say(phase, f"{name} N={N_STEP}: plastic fraction {fracs[0]:.4f} "
+                       f"(step 1), {fracs[1]:.4f} (step 2: 1.7 g from g)")
+            if not 0.0 < fracs[0] < 1.0:
+                raise RuntimeError(f"{phase}: step 1 is not mixed")
+            for label, a, b in (("step 1 xi", k1[0], p1[0]),
+                                ("step 1 sigma", k1[1], p1[1]),
+                                ("step 2 xi", k2[0], p2[0]),
+                                ("step 2 sigma", k2[1], p2[1])):
+                err = check_cols(phase, f"{name} {label}", a, b,
+                                 STEP_BOUND[name])
+                if name == "float64":
+                    errs.append(err)
+            if not all(torch.equal(k[1], k[1].transpose(1, 2))
+                       for k in (k1, k2)):
+                raise RuntimeError(f"{phase}: sigma is not symmetric")
+            say(phase, f"{name}: sigma exactly symmetric")
+            del g, z, g2, x0, k1, k2, p1, p2
+        results[f"{form}_err"] = max(errs)
+        sync()
+        lap(phase)
+
+    # ---------------- 9. mp-batched (main path) ----------------
+    # the material-point models through make_batched_return_map, built
+    # the way a user builds them: Parameters on its default device (the
+    # card)
+    mp_models = {"rate": SmallRateElasticPlastic,
+                 "total": SmallElasticPlastic}
+    mp_kernel = {"rate": "j2_aos_step", "total": "j2_total_step"}
+    mp_g = {dt: sym_grad(N_MP, dt) for dt in dtypes}
+    mp_runs = {}
+    cuda_rr.reset_launch_counts()
+    for form, cls in mp_models.items():
+        for dt in dtypes:
+            model = cls(Parameters(MATERIAL, dtype=dt))
+            step = make_batched_return_map(model, specialize=True)
+            pv, g = model.parameters.values, mp_g[dt]
+            z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+                aos_zero(N_MP, dt)
+            before = cuda_rr.launch_counts()
+            xi1, s1 = step(x0, g, z, pv)
+            xi2, s2 = step(xi1, g2, g, pv)
+            expect = {**before,
+                      mp_kernel[form]: before[mp_kernel[form]] + 2}
+            if cuda_rr.launch_counts() != expect:
+                raise RuntimeError(f"mp-batched: {form} launched "
+                                   f"{cuda_rr.launch_counts()}, expected "
+                                   f"{expect}")
+            mp_runs[(form, dt)] = (model, step, xi1, s1, xi2, s2)
+    sync()
+    mp_launches = cuda_rr.launch_counts()
+    say("mp-batched", f"main path launches (4 calls per kernel: 2 chained "
+                      f"steps x f64, f32): {mp_launches}")
+
+    for (form, dt), (model, step, xi1, s1, xi2, s2) in mp_runs.items():
+        name = str(dt).split(".")[-1]
+        label = f"{form} {name} N={N_MP}"
+        pv, g = model.parameters.values, mp_g[dt]
+        z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+            aos_zero(N_MP, dt)
+        plain = aos_plain[form](model.parameters)
+        p1 = plain(x0, g, z, pv)
+        p2 = plain(p1[0], g2, g, pv)
+        for what, a, b in (("step 1 xi", xi1, p1[0]),
+                           ("step 1 sigma", s1, p1[1]),
+                           ("step 2 xi", xi2, p2[0]),
+                           ("step 2 sigma", s2, p2[1])):
+            check_cols("mp-batched", f"{label} {what}", a, b,
+                       STEP_BOUND[name])
+        del p1, p2
+        plastic1 = int((xi1[:, 6] > 0).sum())
+        if name == "float64":
+            mu, lam, Y, S, D = (float(v) for v in
+                                j2_voce_scalars(pv, dt).tolist())
+            for k, (xp, x, sg) in enumerate(((x0, xi1, s1),
+                                             (xi1, xi2, s2)), start=1):
+                plastic = x[:, 6] > xp[:, 6]
+                resid = (mises_3x3(sg) - Y
+                         - S * (1.0 - torch.exp(-D * x[:, 6])))[plastic]
+                worst = float(resid.abs().max())
+                say("mp-batched", f"{label} step {k}: {int(plastic.sum())} "
+                                  f"plastic points, max |phi - Y - "
+                                  f"H(alpha)| {worst:.3e} (bound "
+                                  f"{YIELD_TOL * Y:g})")
+                if not worst <= YIELD_TOL * Y:
+                    raise RuntimeError("mp-batched: yield condition missed")
+        sc = j2_voce_scalars(pv, dt)
+        ms = best_ms(lambda x: aos_kernel[form](x, g, z, sc)[0], x0, sync)
+        entry = best_ms(lambda x: step(x, g, z, pv)[0], x0, sync)
+        plain_t = best_ms(lambda x: plain(x, g, z, pv)[0], x0, sync)
+        say("mp-batched", f"{label}: kernel {ms:.4f} ms "
+                          f"({N_MP / (ms * 1e-3):.4g} updates/s), entry "
+                          f"point {entry:.4f} ms, plain {plain_t:.4f} ms")
+        timings[("mp", form, name)] = (ms, entry, plain_t, plastic1)
+        del model, step, xi1, s1, xi2, s2, z, g2, x0
+    del mp_runs
+    sync()
+    torch.cuda.empty_cache()
+    lap("mp-batched")
+
+    # ---------------- 10. mp-generic ----------------
+    dt = torch.float64
+    model = SmallRateElasticPlastic(Parameters(MATERIAL, dtype=dt))
+    pv = model.parameters.values
+    g = mp_g[dt][:N_GENERIC].contiguous()
+    z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+        aos_zero(N_GENERIC, dt)
+    generic = make_batched_return_map(model)
+    special = make_batched_return_map(model, specialize=True)
+
+    def two_steps(step):
+        xi1, s1 = step(x0, g, z, pv)
+        xi2, s2 = step(xi1, g2, g, pv)
+        return xi1, s1, xi2, s2
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        gen_out = two_steps(generic)
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        gen_ms = math.inf
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            two_steps(generic)
+            end.record()
+            end.synchronize()
+            gen_ms = min(gen_ms, start.elapsed_time(end))
+        spec_out = two_steps(special)
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(gen_out, spec_out, strict=True))
+    over = sum(int(((a - b).abs() > 1e-9).any(dim=-1).reshape(-1).sum())
+               for a, b in zip(gen_out[::2], spec_out[::2], strict=True))
+    mu = float(j2_voce_scalars(pv, dt)[0])
+    generic_atol = GENERIC_TOL_FACTOR * 2.0 * mu * newton_tols("mp_local",
+                                                                 dt)[0]
+    stats = make_newton_solve_with_stats(model.residual_fun,
+                                         in_dims=(0, None, 0, 0))
+
+    def fields(gu):
+        return GlobalFieldsAtPoint({"u": gu.new_zeros(gu.shape[:-1])},
+                                   {"u": gu})
+
+    it1 = stats(x0, x0, pv, fields(g), fields(z))[1]
+    it2 = stats(gen_out[0], gen_out[0], pv, fields(g2), fields(g))[1]
+    max_it = int(max(it1.max(), it2.max()))
+    gen_ups = 2 * N_GENERIC / (gen_ms * 1e-3)
+    say("mp-generic", f"float64 N={N_GENERIC} x 2 steps: "
+                      f"{gen_ms:.1f} ms = {gen_ups:.4g} updates/s; "
+                      f"most Newton iterations of a point {max_it} "
+                      f"(step 1 mean {float(it1.double().mean()):.3f}, "
+                      f"step 2 mean {float(it2.double().mean()):.3f}); "
+                      f"peak memory {peak / 2**30:.2f} GiB; max |generic - "
+                      f"radial return| {worst:.3e} (atol {generic_atol:.3g} "
+                      f"= {GENERIC_TOL_FACTOR:g} x 2 mu x abs_tol; "
+                      f"{over} point-steps past 1e-9)")
+    if not worst <= generic_atol:
+        raise RuntimeError("mp-generic: the Newton disagrees with the "
+                           "radial return")
+    del gen_out, spec_out, it1, it2, generic, special
+    sync()
+    torch.cuda.empty_cache()
+    lap("mp-generic")
+
+    # ---------------- 11. mp-gradient ----------------
+    gp = Parameters(MATERIAL, GRAD_FLAGS, GRAD_TRANSFORMS, dtype=dt)
+    model = SmallRateElasticPlastic(gp)
+    a0 = torch.tensor(gp.flat_active_values(), dtype=dt, device=dev)
+    g = mp_g[dt][:N_GRAD].contiguous()
+    z, x0 = torch.zeros_like(g), aos_zero(N_GRAD, dt)
+    w = torch.randn((N_GRAD, 3, 3), generator=gen, device=dev, dtype=dt)
+    grads = []
+    for step in (make_batched_return_map(model),
+                 make_j2_radial_return(gp)):
+        a = a0.clone().requires_grad_(True)
+        _, sg = step(x0, g, z, gp.tree_with_flat_active(a))
+        grads.append(torch.autograd.grad((w * sg).sum(), a)[0])
+    got, ref = grads
+    rel = float(((got - ref).abs() / ref.abs()).max())
+    say("mp-gradient", f"float64 N={N_GRAD}: d/d[E, D, S, Y] of a weighted "
+                       f"sum of sigma, implicit-function rule "
+                       f"{[float(f'{v:.10e}') for v in got.tolist()]} vs "
+                       f"autograd through the plain radial return: max rel "
+                       f"err {rel:.3e} (rtol {MP_GRAD_RTOL:g})")
+    if not (bool(torch.isfinite(got).all()) and rel <= MP_GRAD_RTOL):
+        raise RuntimeError("mp-gradient: gradients disagree")
+    del model, g, z, x0, w, grads, mp_g
+    sync()
+    lap("mp-gradient")
+
+    # ---------------- 12. launches ----------------
+    main_path = {"j2_soa_step": launches["j2_soa_step"],
+                 "j2_soa_history": launches["j2_soa_history"],
+                 "j2_aos_step": mp_launches["j2_aos_step"],
+                 "j2_total_step": mp_launches["j2_total_step"]}
+    say("launches", f"main paths (history-drive + fe-dispatch; mp-batched): "
+                    f"{main_path}")
+    if not all(v > 0 for v in main_path.values()):
+        raise RuntimeError(f"launches: a kernel never ran: {main_path}")
+
+    # bounds from this run's shapes and data (f64): bytes each input read
+    # once and each output written once; operations from the plastic
+    # points this run's data produced
     step_ms, step_plain = timings[("step", "float64")]
     drive_ms, drive_plain = timings[("drive", "float64", "headline")]
+    bounds = {
+        "j2_soa_step": bound_ms(168 * N_FE, radial_ops(N_FE, step_plastic),
+                                "float64"),
+        "j2_soa_history": bound_ms(
+            (48 * T_DRIVE + 120) * N_DRIVE,
+            radial_ops(N_DRIVE * T_DRIVE, sum(hist_plastic)), "float64"),
+    }
+    rows = [("j2_soa_step", 173, results["step_err"], step_ms, step_plain),
+            ("j2_soa_history", 464, results["hist_err"], drive_ms,
+             drive_plain)]
+    for form, kname, line, nbytes in (("rate", "j2_aos_step", 40, 328),
+                                      ("total", "j2_total_step", 624, 256)):
+        ms, _entry, plain_t, plastic1 = timings[("mp", form, "float64")]
+        bounds[kname] = bound_ms(nbytes * N_MP, radial_ops(N_MP, plastic1),
+                                 "float64")
+        rows.append((kname, line, results[f"{form}_err"], ms, plain_t))
+    for kname, (b_ms, by) in bounds.items():
+        say("launches", f"{kname}: bound {b_ms:.4f} ms ({by})")
+
+    print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": "j2_soa_step", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:173", "launches": launches["j2_soa_step"],
-         "max_abs_err": results["step_err"], "ms": step_ms,
-         "plain_ms": step_plain},
-        {"name": "j2_soa_history", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:464",
-         "launches": launches["j2_soa_history"],
-         "max_abs_err": results["hist_err"], "ms": drive_ms,
-         "plain_ms": drive_plain},
-    ]}), flush=True)
+        {"name": kname, "route": "cuda", "source": SOURCE,
+         "replaces": f"{PALLAS}:{line}", "launches": main_path[kname],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_t,
+         "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+         "library_ms": None}
+        for kname, line, err, ms, plain_t in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

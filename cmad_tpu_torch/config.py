@@ -11,6 +11,19 @@ from __future__ import annotations
 import torch
 
 DEFAULT_DTYPE = torch.float64
+DEFAULT_DEVICE = torch.device("cuda")
+
+
+def checked_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises (pass ``device="cpu"`` to run on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} asked for (the default is "
+            f"{DEFAULT_DEVICE}), but no CUDA device is available; pass "
+            f"device='cpu' to run on the CPU")
+    return device
 
 
 def setup() -> None:

@@ -12,13 +12,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from cmad_tpu_torch.config import DEFAULT_DTYPE
+from cmad_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE
 from cmad_tpu_torch.parameters.parameters import Parameters
 
 
 def build_parameters(parameters_section: dict[str, Any], *,
                      dtype: torch.dtype = DEFAULT_DTYPE,
-                     device: torch.device | str = "cpu") -> Parameters:
+                     device: torch.device | str = DEFAULT_DEVICE
+                     ) -> Parameters:
     values, flags, transforms = _split(parameters_section)
     return Parameters(values, flags, transforms, dtype=dtype, device=device)
 

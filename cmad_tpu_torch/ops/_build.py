@@ -86,6 +86,14 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
         fn.restype = ctypes.c_int
+    for name in ("j2_aos_step_f32", "j2_aos_step_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("j2_total_step_f32", "j2_total_step_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        fn.restype = ctypes.c_int
     lib.j2_error_string.argtypes = [ctypes.c_int]
     lib.j2_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,8 +1,7 @@
 """Wrappers of the CUDA J2+Voce radial-return kernels.
 
-Counterpart of ``cmad_tpu/ops/pallas_radial_return.py``. Two kernels
-(``csrc/j2_radial_return.cu``) replace its eight ``pallas_call`` sites on
-the return-map path:
+Counterpart of ``cmad_tpu/ops/pallas_radial_return.py``. Four kernels
+(``csrc/j2_radial_return.cu``) replace its eight ``pallas_call`` sites:
 
 - :func:`soa_step_scalars_cuda` — ``j2_soa_step``, one rate-form step
   (replaces K1 ``_kernel_soa``; K6 ``_kernel_soa_wide`` is the same call
@@ -10,12 +9,20 @@ the return-map path:
 - :func:`soa_history_cuda` — ``j2_soa_history``, a whole strain history
   of any length T with the state in registers (replaces K2
   ``_kernel_soa_hist_full`` and K3 ``_kernel_soa_hist``; K7 and K8 are
-  the same call on the wide view).
+  the same call on the wide view);
+- :func:`aos_step_cuda` — ``j2_aos_step``, one rate-form step on the AoS
+  state ``(N, 7)`` and displacement gradients ``(N, 3, 3)`` (replaces K4
+  ``_kernel``);
+- :func:`total_step_cuda` — ``j2_total_step``, one total-form step
+  (replaces K5 ``_kernel_total``).
 
-The plain versions are ``ops/j2_radial_return.soa_step_scalars`` and a
-loop of it. These wrappers take CUDA tensors only and raise on anything
-else; the dispatching functions (``ops/return_map.py``,
-``ops/j2_soa_ad.py``) pick the plain version for CPU tensors.
+The plain versions are ``ops/j2_radial_return.soa_step_scalars`` (and a
+loop of it), ``make_j2_radial_return`` and ``make_j2_radial_return_total``.
+These wrappers take CUDA tensors only and raise on anything else; the
+dispatching functions (``ops/return_map.py``, ``ops/j2_soa_ad.py``) pick
+the plain version for CPU tensors. The AoS wrappers are forward-only, like
+the TPU's: an input that requires grad raises (differentiate through the
+generic Newton, ``make_batched_return_map(model)``, instead).
 
 Each wrapper adds one to its module-level launch count where it launches
 its kernel, and nowhere else, so a run can show that its main path went
@@ -25,10 +32,13 @@ from __future__ import annotations
 
 import torch
 
+from cmad_tpu_torch.ops.j2_radial_return import j2_voce_scalars
 from cmad_tpu_torch.typing import Tensor
 
 j2_soa_step_launches = 0
 j2_soa_history_launches = 0
+j2_aos_step_launches = 0
+j2_total_step_launches = 0
 
 _SUB = 8  # rows per component in the wide layout
 _DTYPES = (torch.float32, torch.float64)
@@ -36,13 +46,18 @@ _DTYPES = (torch.float32, torch.float64)
 
 def reset_launch_counts() -> None:
     global j2_soa_step_launches, j2_soa_history_launches
+    global j2_aos_step_launches, j2_total_step_launches
     j2_soa_step_launches = 0
     j2_soa_history_launches = 0
+    j2_aos_step_launches = 0
+    j2_total_step_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {"j2_soa_step": j2_soa_step_launches,
-            "j2_soa_history": j2_soa_history_launches}
+            "j2_soa_history": j2_soa_history_launches,
+            "j2_aos_step": j2_aos_step_launches,
+            "j2_total_step": j2_total_step_launches}
 
 
 def on_cuda(t: Tensor) -> bool:
@@ -149,6 +164,114 @@ def soa_history_cuda(xi_soa: Tensor, de_hist: Tensor,
     _raise_on_error(lib, rc, "j2_soa_history")
     j2_soa_history_launches += 1
     return out
+
+
+def _check_aos(xi_prev: Tensor, grads: dict[str, Tensor],
+               scalars: Tensor) -> int:
+    """Validate the AoS inputs; returns N. Forward-only: any input that
+    requires grad raises rather than returning a detached result."""
+    inputs = {"xi_prev": xi_prev, **grads, "scalars": scalars}
+    for name, t in inputs.items():
+        if isinstance(t, Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{name} requires grad, but the CUDA J2 return map is "
+                f"forward-only; differentiate through the generic Newton "
+                f"(make_batched_return_map(model)) instead")
+    if not isinstance(xi_prev, Tensor) or xi_prev.dim() != 2 \
+            or xi_prev.shape[1] != 7:
+        raise ValueError(f"xi_prev: expected shape (N, 7); got "
+                         f"{getattr(xi_prev, 'shape', None)}")
+    n = int(xi_prev.shape[0])
+    _check("xi_prev", xi_prev, (n, 7), xi_prev)
+    for name, g in grads.items():
+        _check(name, g, (n, 3, 3), xi_prev)
+    _check("scalars", scalars, (5,), xi_prev)
+    return n
+
+
+def aos_step_cuda(xi_prev: Tensor, grad_u: Tensor, grad_u_prev: Tensor,
+                  scalars: Tensor) -> tuple[Tensor, Tensor]:
+    """One rate-form radial return on the AoS state: ``xi_prev (N, 7),
+    grad_u, grad_u_prev (N, 3, 3), scalars (5,) -> (xi (N, 7),
+    sigma (N, 3, 3))``, all on one CUDA device in one dtype, contiguous.
+    Semantics of ``j2_radial_return.make_j2_radial_return``."""
+    from cmad_tpu_torch.ops._build import load_library
+
+    global j2_aos_step_launches
+    n = _check_aos(xi_prev, {"grad_u": grad_u, "grad_u_prev": grad_u_prev},
+                   scalars)
+    lib = load_library()
+    fn = lib.j2_aos_step_f64 if xi_prev.dtype == torch.float64 \
+        else lib.j2_aos_step_f32
+    xi = torch.empty_like(xi_prev)
+    sigma = torch.empty_like(grad_u)
+    if n == 0:
+        return xi, sigma
+    with torch.cuda.device(xi_prev.device):
+        stream = torch.cuda.current_stream(xi_prev.device).cuda_stream
+        rc = fn(xi_prev.data_ptr(), grad_u.data_ptr(), grad_u_prev.data_ptr(),
+                scalars.data_ptr(), xi.data_ptr(), sigma.data_ptr(), n,
+                stream)
+    _raise_on_error(lib, rc, "j2_aos_step")
+    j2_aos_step_launches += 1
+    return xi, sigma
+
+
+def total_step_cuda(xi_prev: Tensor, grad_u: Tensor,
+                    scalars: Tensor) -> tuple[Tensor, Tensor]:
+    """One total-form radial return: ``xi_prev (N, 7) = [plastic strain
+    (6), alpha], grad_u (N, 3, 3), scalars (5,) -> (xi (N, 7),
+    sigma (N, 3, 3))``. Semantics of
+    ``j2_radial_return.make_j2_radial_return_total``."""
+    from cmad_tpu_torch.ops._build import load_library
+
+    global j2_total_step_launches
+    n = _check_aos(xi_prev, {"grad_u": grad_u}, scalars)
+    lib = load_library()
+    fn = lib.j2_total_step_f64 if xi_prev.dtype == torch.float64 \
+        else lib.j2_total_step_f32
+    xi = torch.empty_like(xi_prev)
+    sigma = torch.empty_like(grad_u)
+    if n == 0:
+        return xi, sigma
+    with torch.cuda.device(xi_prev.device):
+        stream = torch.cuda.current_stream(xi_prev.device).cuda_stream
+        rc = fn(xi_prev.data_ptr(), grad_u.data_ptr(), scalars.data_ptr(),
+                xi.data_ptr(), sigma.data_ptr(), n, stream)
+    _raise_on_error(lib, rc, "j2_total_step")
+    j2_total_step_launches += 1
+    return xi, sigma
+
+
+def make_cuda_j2_radial_return(parameters):
+    """``step(xi_prev, grad_u, grad_u_prev, params) -> (xi, sigma)`` on
+    the ``j2_aos_step`` kernel; counterpart of the JAX package's
+    ``make_pallas_j2_radial_return`` (same contract as
+    ``make_j2_radial_return``). CUDA tensors only."""
+    del parameters  # layout fixed by the J2+Voce model
+
+    def step(xi_prev: Tensor, grad_u: Tensor, grad_u_prev: Tensor,
+             params) -> tuple[Tensor, Tensor]:
+        return aos_step_cuda(xi_prev, grad_u, grad_u_prev,
+                             j2_voce_scalars(params, xi_prev.dtype))
+
+    return step
+
+
+def make_cuda_j2_radial_return_total(parameters):
+    """``step(xi_prev, grad_u, grad_u_prev, params) -> (xi, sigma)`` on
+    the ``j2_total_step`` kernel (``grad_u_prev`` unused, as in the total
+    form); counterpart of ``make_pallas_j2_radial_return_total``. CUDA
+    tensors only."""
+    del parameters
+
+    def step(xi_prev: Tensor, grad_u: Tensor, grad_u_prev: Tensor,
+             params) -> tuple[Tensor, Tensor]:
+        del grad_u_prev
+        return total_step_cuda(xi_prev, grad_u,
+                               j2_voce_scalars(params, xi_prev.dtype))
+
+    return step
 
 
 def _to_wide(a: Tensor) -> Tensor:

@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from cmad_tpu_torch.config import DEFAULT_DTYPE
+from cmad_tpu_torch.config import DEFAULT_DEVICE, DEFAULT_DTYPE, checked_device
 from cmad_tpu_torch.typing import (
     ActiveFlags,
     Params,
@@ -127,10 +127,10 @@ class Parameters:
             active_flags: ActiveFlags | None = None,
             transforms: Transforms | None = None,
             *, dtype: torch.dtype = DEFAULT_DTYPE,
-            device: torch.device | str = "cpu",
+            device: torch.device | str = DEFAULT_DEVICE,
     ) -> None:
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = checked_device(device)
 
         def as_leaf(x) -> Tensor:
             if isinstance(x, Tensor):

@@ -2,6 +2,7 @@
 ``cmad_tpu/typing.py``)."""
 from __future__ import annotations
 
+from collections.abc import Callable
 from typing import Any
 
 import torch
@@ -15,3 +16,8 @@ Params = dict[str, Any]
 Transform = list[float] | None
 ActiveFlags = PyTree
 Transforms = PyTree
+
+# Model function signatures. ``xi`` is the flat local state vector; ``U`` is
+# a GlobalFieldsAtPoint.
+ResidualFn = Callable[..., Tensor]  # (xi, xi_prev, params, U, U_prev) -> C
+CauchyFn = Callable[..., Tensor]    # (xi, xi_prev, params, U, U_prev) -> (3,3)

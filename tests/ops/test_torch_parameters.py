@@ -8,6 +8,7 @@ must agree to float64 roundoff.
 """
 from __future__ import annotations
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +22,7 @@ import torch
 from cmad_tpu.io.params_builder import build_parameters as jax_build
 from cmad_tpu.models.elastic_constants import ElasticConstants as JaxEC
 from cmad_tpu.ops.j2_radial_return import j2_voce_scalars as jax_scalars
+from cmad_tpu_torch import config
 from cmad_tpu_torch.io.params_builder import build_parameters
 from cmad_tpu_torch.models.elastic_constants import ElasticConstants
 from cmad_tpu_torch.ops.j2_radial_return import j2_voce_scalars
@@ -145,7 +147,7 @@ def test_build_parameters_from_deck_matches():
                           "transform": {"bounds": [100.0, 300.0]}},
                     "D": {"value": 20.0, "active": True}}}}}}
     p = jax_build(deck)
-    tp = build_parameters(deck)
+    tp = build_parameters(deck, device="cpu")
     assert tp.dtype == F64 and tp.device.type == "cpu"
     np.testing.assert_array_equal(tp.active_idx, p.active_idx)
     np.testing.assert_allclose(tp.flat_active_values(True),
@@ -153,7 +155,16 @@ def test_build_parameters_from_deck_matches():
     np.testing.assert_allclose(tp._ravel(tp.values).numpy(),
                                np.asarray(p._flat_values), rtol=0)
     with pytest.raises(ValueError, match="unknown transform"):
-        build_parameters({"Y": {"value": 1.0, "transform": {"exp": 1}}})
+        build_parameters({"Y": {"value": 1.0, "transform": {"exp": 1}}},
+                         device="cpu")
+    # the default is the card: without one, a call that does not ask
+    # for the CPU raises instead of running there
+    default = inspect.signature(build_parameters).parameters["device"]
+    assert default.default == config.DEFAULT_DEVICE
+    assert config.DEFAULT_DEVICE == torch.device("cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_parameters(deck)
 
 
 def test_port_imports_neither_jax_nor_cmad_tpu():
