@@ -10,7 +10,8 @@ It builds the four CUDA kernels of ``cmad_tpu_torch/csrc`` (nvcc, into
 on the card, drives the port's public entry points at the headline sizes
 and checks the answers against the plain path and against the yield
 condition, and prints timings of the kernel and plain paths measured with
-CUDA events. The paths driven:
+CUDA events beside each kernel's bound (its bytes, and its operations as
+the built library's SASS counts them). The paths driven:
 
 - the SoA history drive at 2,097,152 points x 64 steps and the FE
   dispatch chain at 4,194,304 points x 8 steps (``j2_soa_history``,
@@ -51,7 +52,12 @@ MATERIAL = {
 
 N_STEP = 1_000_003          # parity of j2_soa_step (not a multiple of 8)
 N_HIST = 262_147            # parity of j2_soa_history
-T_HIST = (13, 64)
+# the history's edges: one point, a part of a warp, one block of
+# j2_soa_history (256 threads) +- 1, and the odd N above; T shorter than
+# the one-step-ahead prefetch, and two long histories
+N_HIST_EDGES = (1, 33, 255, 257, N_HIST)
+T_HIST = (0, 1, 2, 13, 64)
+AOS_TILE = 128              # points per block of j2_aos_step
 N_DRIVE, T_DRIVE = 2_097_152, 64   # the history-drive headline
 N_FE, FE_STEPS, FE_Q = 4_194_304, 8, 8
 N_MP = 4_194_304            # the batched return map (bench.py:355)
@@ -75,13 +81,12 @@ GENERIC_TOL_FACTOR = 2.0    # bound = GENERIC_TOL_FACTOR * 2 mu * abs_tol
 MP_GRAD_RTOL = 1e-9
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, outside the
-# tensor cores): bytes/s and operations/s
+# tensor cores): bytes/s and operations/s. The operations of each kernel,
+# per elastic update and added per plastic update, are read from the
+# built library's SASS (cmad_tpu_torch/ops/_sass.py: DFMA and FFMA 2,
+# DADD, DMUL, FADD and FMUL 1)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float64": 34e12, "float32": 67e12}
-# operations per point of one radial return, exp and divide counted as
-# one each: the trial stress and corrector outside the Newton loop, and
-# one Newton iteration (8 per plastic point)
-OPS_STEP, OPS_NEWTON = 45, 12
+PEAK_OPS = {"fp64": 34e12, "fp32": 67e12}
 
 # the gradient phase's active parameters: E, Y, S, D
 GRAD_FLAGS = {
@@ -112,7 +117,7 @@ def row_error(out, ref) -> tuple[float, float]:
     return float(diff.max()), float((diff / scale).max())
 
 
-def check_rows(phase, label, out, ref, bound) -> float:
+def check_rows(phase, label, out, ref, bound, quiet=False) -> float:
     import torch
 
     if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
@@ -120,8 +125,9 @@ def check_rows(phase, label, out, ref, bound) -> float:
     if bool((out[7] != 0).any()):
         raise RuntimeError(f"{phase} {label}: pad row is not zero")
     abs_err, rel_err = row_error(out, ref)
-    say(phase, f"{label}: max_abs_err={abs_err:.3e} "
-               f"max_row_scaled_err={rel_err:.3e} bound={bound:g}")
+    if not quiet:
+        say(phase, f"{label}: max_abs_err={abs_err:.3e} "
+                   f"max_row_scaled_err={rel_err:.3e} bound={bound:g}")
     if not rel_err <= bound:
         raise RuntimeError(f"{phase} {label}: {rel_err} > {bound}")
     return abs_err
@@ -145,16 +151,19 @@ def check_cols(phase, label, out, ref, bound) -> float:
     return abs_err
 
 
-def bound_ms(nbytes: float, nops: float, dtype_name: str):
+def bound_ms(nbytes: float, counts: dict, updates: float,
+             plastic_updates: float):
     """The least time the card could take: (ms, "bytes" or
-    "operations")."""
+    "operations", bytes ms, operations ms), with the operations of
+    ``counts`` (one kernel's entry of ``_sass.library_counts``); the f64
+    and f32 pipes run side by side."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def radial_ops(points: float, plastic_points: float) -> float:
-    return OPS_STEP * points + 8 * OPS_NEWTON * plastic_points
+    t_ops = max((counts["elastic"][k] * updates
+                 + counts["plastic"][k] * plastic_updates)
+                / PEAK_OPS[k] * 1e3 for k in PEAK_OPS)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bytes, t_ops
+    return t_ops, "operations", t_bytes, t_ops
 
 
 def mises_3x3(s):
@@ -168,8 +177,9 @@ def mises_3x3(s):
 
 
 def best_ms(fn, x0, sync) -> float:
-    """Best of ROUNDS rounds of REPS chained calls, ms per call, CUDA
-    events around each round after one warm-up call."""
+    """Best of ROUNDS rounds of REPS chained calls (each call's output
+    is the next one's input), ms per call, CUDA events around each round
+    after one warm-up call."""
     import torch
 
     fn(x0)
@@ -209,7 +219,7 @@ def main() -> int:
     from cmad_tpu_torch.models.small_rate_elastic_plastic import (
         SmallRateElasticPlastic,
     )
-    from cmad_tpu_torch.ops import _build
+    from cmad_tpu_torch.ops import _build, _sass
     from cmad_tpu_torch.ops import cuda_radial_return as cuda_rr
     from cmad_tpu_torch.ops.j2_radial_return import (
         j2_voce_scalars,
@@ -218,6 +228,7 @@ def main() -> int:
         pack_state_soa,
         soa_step_scalars,
         strain_increment_soa,
+        unpack_state_soa,
     )
     from cmad_tpu_torch.ops.j2_soa_ad import make_soa_step_ad
     from cmad_tpu_torch.ops.return_map import (
@@ -292,6 +303,11 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", line.strip())
+    ops = _sass.library_counts(path)
+    for kname, c in sorted(ops.items()):
+        say("build", f"{kname} SASS operations per update: elastic "
+                     f"{c['elastic']}, a plastic update adds {c['plastic']}; "
+                     f"{c['mnemonics']}")
     lap("build")
 
     results = {}
@@ -333,21 +349,71 @@ def main() -> int:
     lap("parity-step")
 
     # ---------------- 4. parity-history ----------------
+    def history_input(n, t_steps, dtype):
+        de_hist = torch.zeros((t_steps, 8, n), device=dev, dtype=dtype)
+        de_hist[:, :6] = (1.5e-3 / 16) * torch.randn(
+            (t_steps, 6, n), generator=gen, device=dev, dtype=dtype)
+        return de_hist
+
     for dt in dtypes:
         name = str(dt).split(".")[-1]
-        for T in T_HIST:
-            xi0 = zero_state(N_HIST, dt)
-            de_hist = torch.zeros((T, 8, N_HIST), device=dev, dtype=dt)
-            de_hist[:, :6] = (1.5e-3 / 16) * torch.randn(
-                (T, 6, N_HIST), generator=gen, device=dev, dtype=dt)
-            out = cuda_rr.soa_history_cuda(xi0, de_hist, scalars[dt])
-            ref = plain_drive(xi0, de_hist, scalars[dt])
-            frac = float((out[6] > 0).double().mean())
-            say("parity-history", f"{name} N={N_HIST} T={T}: plastic "
-                                  f"fraction {frac:.4f}")
-            check_rows("parity-history", f"{name} N={N_HIST} T={T}", out,
-                       ref, HIST_BOUND[name])
-            del xi0, de_hist, out, ref
+        worst = 0.0
+        for n in N_HIST_EDGES:
+            for T in T_HIST:
+                xi0 = zero_state(n, dt)
+                de_hist = history_input(n, T, dt)
+                out = cuda_rr.soa_history_cuda(xi0, de_hist, scalars[dt])
+                ref = plain_drive(xi0, de_hist, scalars[dt])
+                if n == N_HIST and T >= 13:
+                    say("parity-history", f"{name} N={n} T={T}: plastic "
+                                          f"fraction "
+                                          f"{float((out[6] > 0).double().mean()):.4f}")
+                    check_rows("parity-history", f"{name} N={n} T={T}", out,
+                               ref, HIST_BOUND[name])
+                else:
+                    abs_err = check_rows("parity-history", f"{name} N={n} "
+                                         f"T={T}", out, ref,
+                                         HIST_BOUND[name], quiet=True)
+                    worst = max(worst, abs_err)
+                del xi0, de_hist, out, ref
+        say("parity-history", f"{name}: N in {N_HIST_EDGES} x T in {T_HIST}: "
+                              f"all within {HIST_BOUND[name]:g}, max abs "
+                              f"err {worst:.3e} at the short edges")
+        # against T chained j2_soa_step launches, and the yield condition
+        # on the points that yield in the last step
+        T = T_HIST[-1]
+        xi0 = zero_state(N_HIST, dt)
+        de_hist = history_input(N_HIST, T, dt)
+        out = cuda_rr.soa_history_cuda(xi0, de_hist, scalars[dt])
+        before = cuda_rr.soa_history_cuda(xi0, de_hist[:T - 1], scalars[dt])
+        xs = xi0
+        for t in range(T):
+            xs = cuda_rr.soa_step_scalars_cuda(xs, de_hist[t], scalars[dt])
+        diff = float((out - xs).abs().max())
+        say("parity-history", f"{name} N={N_HIST} T={T}: j2_soa_history vs "
+                              f"{T} chained j2_soa_step launches: max abs "
+                              f"diff {diff:.3e} (bit-identical: "
+                              f"{bool(torch.equal(out, xs))})")
+        check_rows("parity-history", f"{name} j2_soa_history vs chained "
+                   f"j2_soa_step", out, xs, HIST_BOUND[name])
+        if dt == torch.float64:
+            mu, lam, Y, S, D = (float(v) for v in scalars[dt].tolist())
+            plastic = out[6] > before[6]
+            p = (out[0] + out[3] + out[5]) / 3.0
+            phi = torch.sqrt(1.5 * ((out[0] - p) ** 2 + (out[3] - p) ** 2
+                                    + (out[5] - p) ** 2
+                                    + 2.0 * (out[1] ** 2 + out[2] ** 2
+                                             + out[4] ** 2)))
+            resid = (phi - Y - S * (1.0 - torch.exp(-D * out[6])))[plastic]
+            max_resid = float(resid.abs().max())
+            say("parity-history", f"{name} N={N_HIST} T={T}: "
+                                  f"{int(plastic.sum())} points yield in "
+                                  f"the last step; max |phi - Y - "
+                                  f"H(alpha)| {max_resid:.3e} (bound "
+                                  f"{YIELD_TOL * Y:g})")
+            if not max_resid <= YIELD_TOL * Y:
+                raise RuntimeError("parity-history: yield condition missed")
+        del xi0, de_hist, out, before, xs
     sync()
     lap("parity-history")
 
@@ -361,8 +427,11 @@ def main() -> int:
         name = str(dt).split(".")[-1]
         pv, sc = params[dt].values, scalars[dt]
         de = increment(N_DRIVE, dt)
+        # headline: every point yields; mixed: about 57% do; elastic:
+        # none does, which times the bytes alone
         for regime, factor in (("headline", 1.0),
-                               ("mixed", 0.045 * 8 / T_DRIVE)):
+                               ("mixed", 0.045 * 8 / T_DRIVE),
+                               ("elastic", 1e-3)):
             de_hist = (factor * de).expand(T_DRIVE, 8, N_DRIVE).contiguous()
             xi0 = zero_state(N_DRIVE, dt)
             out = drive(xi0, de_hist, pv)
@@ -370,6 +439,9 @@ def main() -> int:
             ref = plain_drive(xi0, de_hist, sc,
                               hist_plastic if headline64 else None)
             frac = float((out[6] > 0).double().mean())
+            if (regime == "elastic") != (frac == 0.0):
+                raise RuntimeError(f"history-drive: {regime} regime has "
+                                   f"plastic fraction {frac}")
             label = f"{name} {regime} N={N_DRIVE} T={T_DRIVE}"
             err = check_rows("history-drive", label, out, ref,
                              HIST_BOUND[name])
@@ -382,8 +454,10 @@ def main() -> int:
                 raise RuntimeError("history-drive: layout='wide' differs")
             say("history-drive", f"{label}: layout='wide' bit-identical")
             del out, ref, wide
-            ms = best_ms(lambda x: drive(x, de_hist, pv), xi0, sync)
-            plain = best_ms(lambda x: plain_drive(x, de_hist, sc), xi0, sync)
+            # every drive from xi0, so that each timed call is the regime
+            ms = best_ms(lambda _x: drive(xi0, de_hist, pv), xi0, sync)
+            plain = best_ms(lambda _x: plain_drive(xi0, de_hist, sc), xi0,
+                            sync)
             ups = N_DRIVE * T_DRIVE / (ms * 1e-3)
             plain_ups = N_DRIVE * T_DRIVE / (plain * 1e-3)
             timings[("drive", name, regime)] = (ms, plain)
@@ -563,6 +637,32 @@ def main() -> int:
             say(phase, f"{name}: sigma exactly symmetric")
             del g, z, g2, x0, k1, k2, p1, p2
         results[f"{form}_err"] = max(errs)
+        if form == "rate":
+            # the ragged last tile, and inputs that start one row into
+            # their storage (56 B into xi, 72 B into grad_u)
+            for dt in dtypes:
+                name = str(dt).split(".")[-1]
+                plain = aos_plain[form](params[dt])
+                pv, sc = params[dt].values, scalars[dt]
+                for n in (AOS_TILE - 1, AOS_TILE + 1):
+                    for offset in (0, 1):
+                        g = sym_grad(n + offset, dt)[offset:]
+                        g0 = (0.3 * sym_grad(n + offset, dt))[offset:]
+                        x0 = unpack_state_soa(
+                            advanced(n + offset, dt)[0]).contiguous()[offset:]
+                        if offset and x0.data_ptr() % 16 == 0:
+                            raise RuntimeError(f"{phase}: the view is "
+                                               f"16 B aligned")
+                        k1 = cuda_rr.aos_step_cuda(x0, g, g0, sc)
+                        p1 = plain(x0, g, g0, pv)
+                        for label, a, b in (("xi", k1[0], p1[0]),
+                                            ("sigma", k1[1], p1[1])):
+                            check_cols(phase, f"{name} N={n} offset "
+                                       f"{offset} row {label}", a, b,
+                                       STEP_BOUND[name])
+                        if not torch.equal(k1[1], k1[1].transpose(1, 2)):
+                            raise RuntimeError(f"{phase}: sigma is not "
+                                               f"symmetric")
         sync()
         lap(phase)
 
@@ -747,16 +847,16 @@ def main() -> int:
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
 
     # bounds from this run's shapes and data (f64): bytes each input read
-    # once and each output written once; operations from the plastic
-    # points this run's data produced
+    # once and each output written once; operations from the SASS counts
+    # and the plastic updates this run's data produced
     step_ms, step_plain = timings[("step", "float64")]
     drive_ms, drive_plain = timings[("drive", "float64", "headline")]
     bounds = {
-        "j2_soa_step": bound_ms(168 * N_FE, radial_ops(N_FE, step_plastic),
-                                "float64"),
+        "j2_soa_step": bound_ms(168 * N_FE, ops["j2_soa_step<double>"],
+                                N_FE, step_plastic),
         "j2_soa_history": bound_ms(
-            (48 * T_DRIVE + 120) * N_DRIVE,
-            radial_ops(N_DRIVE * T_DRIVE, sum(hist_plastic)), "float64"),
+            (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double>"],
+            N_DRIVE * T_DRIVE, sum(hist_plastic)),
     }
     rows = [("j2_soa_step", 173, results["step_err"], step_ms, step_plain),
             ("j2_soa_history", 464, results["hist_err"], drive_ms,
@@ -764,11 +864,14 @@ def main() -> int:
     for form, kname, line, nbytes in (("rate", "j2_aos_step", 40, 328),
                                       ("total", "j2_total_step", 624, 256)):
         ms, _entry, plain_t, plastic1 = timings[("mp", form, "float64")]
-        bounds[kname] = bound_ms(nbytes * N_MP, radial_ops(N_MP, plastic1),
-                                 "float64")
+        bounds[kname] = bound_ms(nbytes * N_MP, ops[f"{kname}<double>"],
+                                 N_MP, plastic1)
         rows.append((kname, line, results[f"{form}_err"], ms, plain_t))
-    for kname, (b_ms, by) in bounds.items():
-        say("launches", f"{kname}: bound {b_ms:.4f} ms ({by})")
+    for kname, line, _err, ms, _plain in rows:
+        b_ms, by, t_bytes, t_ops = bounds[kname]
+        say("launches", f"{kname}: bound {b_ms:.4f} ms ({by}; bytes "
+                        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms); "
+                        f"kernel {ms:.4f} ms = {b_ms / ms:.1%} of the bound")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

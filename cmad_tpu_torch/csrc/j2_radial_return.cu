@@ -14,8 +14,8 @@
 // the AoS kernels are described where they are defined.
 //
 // Layout (component-major, contract in ops/j2_radial_return.py): row r of
-// point j sits at r*N + j. One thread owns one point (grid-stride loop),
-// so each row load and store of a warp is one coalesced 32-point segment.
+// point j sits at r*N + j. Consecutive threads own consecutive points, so
+// each row load and store of a warp is one coalesced 32-point segment.
 // The TPU's tiling is not carried over: no padding, the loop bound masks
 // the ragged edge, and offsets are 64-bit (T*8*N passes 2^31 at 4M
 // points x 64 steps).
@@ -24,16 +24,9 @@
 // pointer and are loaded by every thread (broadcast through the read-only
 // cache), so no host sync is needed to launch a step.
 //
-// What bounds it on an H100 (3.35 TB/s HBM3 at 700 W): both kernels are
-// memory-bound. j2_soa_step moves 6 + 7 reads and 8 writes per update
-// (168 B in f64, 84 B in f32). j2_soa_history keeps the 7 state values
-// in registers across a runtime loop over T and reads only strain rows
-// 0-5 of each step: 48 B of strain per update plus 120/T B of state in
-// f64 (24 + 60/T B in f32). The Newton corrector costs 8 exp and 8
-// divides per plastic point; in f64 that is the part that may become the
-// limit (the H100 issues f64 at half its f32 rate). The next step's
-// strain is loaded before the current step is computed, so one step's
-// loads are in flight under the arithmetic of the previous one.
+// What bounds j2_soa_step on an H100 (3.35 TB/s HBM3 at 700 W): memory.
+// It moves 6 + 7 reads and 8 writes per update (168 B in f64, 84 B in
+// f32), one thread per point.
 //
 // The arithmetic follows _radial_rows (pallas_radial_return.py:123-170)
 // op for op. nvcc contracts a*b+c into FMAs (no --use_fast_math: expf
@@ -66,6 +59,29 @@ template <typename T>
 __device__ __forceinline__ Material<T> load_material(const T* __restrict__ s) {
   return Material<T>{__ldg(s + 0), __ldg(s + 1), __ldg(s + 2), __ldg(s + 3),
                      __ldg(s + 4)};
+}
+
+// Asynchronous 4 B / 8 B copy from global to shared memory (cp.async,
+// sm_80+): no register holds the value on the way, and the issuing
+// thread sees it after cp_async_wait.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4 B or 8 B words");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` of this thread's committed groups are
+// still in flight.
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 // Deviator, Mises norm and plastic multiplier of one trial stress
@@ -164,17 +180,185 @@ j2_soa_step_kernel(const T* __restrict__ xi, const T* __restrict__ de,
   }
 }
 
-// The whole strain history for one point in one thread: the TPU kernel
-// carried the state across its sequential grid axis in VMEM; here blocks
-// run in no order, so the loop over T lives inside the thread and the
-// state stays in registers. Row 7 of the output is written as zero (K2
-// passed the input's pad row through; every caller's pad row is zero).
+// ---------------------------------------------------------------------------
+// j2_soa_history (K2, K3; K7, K8 as views): the whole strain history of a
+// point in one thread. The TPU kernel carried the state across its
+// sequential grid axis in VMEM; here blocks run in no order, so the loop
+// over T lives inside the thread and the state stays in registers, and
+// the strain of the next steps is loaded before the current step is
+// computed. Row 7 of the output is written as zero (K2 passed the
+// input's pad row through; every caller's pad row is zero).
+//
+// What bounds it on an H100: on plastic data, instructions, not bytes.
+// It reads strain rows 0-5 of each step and the state once, 48 + 120/T B
+// per update in f64 (24 + 60/T in f32), 2.00 ms at 2,097,152 points x 64
+// steps; with j2_corrector's arithmetic a drive in which no point yields
+// ran at 89% of that and an all-plastic one took 2.7x as long. A plastic
+// update adds 8 Newton iterations, each an exp (in f64 a 14-FMA
+// polynomial, its constants rematerialised, about 35 instructions) and
+// an IEEE divide (MUFU.RCP64H, 7 FP64 instructions and a range check):
+// 480 f64 operations and about 1,000 instructions in the SASS, against
+// 118 operations for an elastic update. Two points per thread with their
+// Newton iterations interleaved, or 50% occupancy, did not shorten it:
+// the schedulers' one instruction a cycle and the FP64 pipe (2 cycles a
+// warp instruction) bound it.
+//
+// What the design does about it: fewer instructions for the same fixed
+// point, the 8 iterations kept.
+// - Iteration 0 reuses exp(-D alpha_prev) from the yield check (dg = 0
+//   there, and alpha_prev + 0 only flips the sign of a zero).
+// - 3 mu, S D and Y + S are hoisted: g = (phi - (Y + S)) - 3 mu dg +
+//   S ex, two FMAs.
+// - In f64 the first kF32Iters iterations run in f32 (MUFU.EX2 and a fast
+//   reciprocal, on the FP32 pipe); they bring dg to f32 precision, and
+//   the last two run in f64 from there: Newton's quadratic convergence
+//   takes an f32-accurate dg to the f64 fixed point in one iteration
+//   (a trial stress beyond f32's range, 3.4e38, would not get there).
+// - Every iteration but the last divides with a fast reciprocal (f64:
+//   MUFU.RCP64H and one cubic refinement; f32: __fdividef); the last one
+//   is the exact IEEE divide, as j2_corrector's.
+// - No launch bound below the registers this takes (112 in f64): a
+//   smaller cap spilled inside the Newton and doubled the time. The 16
+//   warps per SM that 112 registers leave keep two steps of strain in
+//   flight each (the loop is unrolled by two, so no register copy waits
+//   on a load), and the grid is balanced so that no last round runs with
+//   a few blocks alone: an all-elastic drive keeps its bytes' time.
+// The yield check, trial stress and radial scale are j2_corrector's, so a
+// point is classified as in j2_soa_step; the result differs from T
+// chained j2_soa_step launches by rounding only.
+// ---------------------------------------------------------------------------
+
+constexpr int kHistThreads = 256;
+constexpr int kHistMinBlocks = 2;  // per SM: caps registers at 128
+constexpr int kF32Iters = 6;       // f64: Newton iterations run in f32
+// strain steps in flight: two in f64, one in f32 (whose 48 registers
+// leave 40 warps per SM; a second buffer made its all-elastic drive 5%
+// slower)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kHistAhead = sizeof(T) == 8 ? 2 : 1;
+
+// The corrector's constants, hoisted out of the loops.
+template <typename T>
+struct Voce {
+  T mu3, ys, s, d, sd;  // 3 mu, Y + S, S, D, S D
+};
+
+template <typename T, typename M>
+__device__ __forceinline__ Voce<T> voce(const Material<M>& m) {
+  const T mu = static_cast<T>(m.mu), s = static_cast<T>(m.S),
+          d = static_cast<T>(m.D);
+  return Voce<T>{T(3) * mu, static_cast<T>(m.Y) + s, s, d, s * d};
+}
+
+// 1 / x to about 1 ulp: MUFU.RCP64H, then one cubic refinement.
+__device__ __forceinline__ double rcp_fast(double x) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  const double e = fma(-x, r, 1.0);
+  return fma(r, fma(e, e, e), r);
+}
+
+// One Newton iteration on dg: g = phi - 3 mu dg - Y - S (1 - ex) with c =
+// phi - (Y + S), dgd = dg/d(dg); `exact` takes the IEEE divide.
+__device__ __forceinline__ float newton_step(float dg, float c, float ex,
+                                             const Voce<float>& v,
+                                             bool exact) {
+  const float g = c - v.mu3 * dg + v.s * ex;
+  const float dgd = -v.mu3 - v.sd * ex;
+  return fmaxf(dg - (exact ? g / dgd : __fdividef(g, dgd)), 0.f);
+}
+
+__device__ __forceinline__ double newton_step(double dg, double c, double ex,
+                                              const Voce<double>& v,
+                                              bool exact) {
+  const double g = c - v.mu3 * dg + v.s * ex;
+  const double dgd = -v.mu3 - v.sd * ex;
+  return fmax(dg - (exact ? g / dgd : g * rcp_fast(dgd)), 0.0);
+}
+
+// The plastic multiplier of a yielding point: 8 Newton iterations from
+// dg = 0, ex0 = exp(-D alpha).
+__device__ __forceinline__ float history_newton(float phi, float alpha,
+                                                float ex0,
+                                                const Voce<float>& v,
+                                                const Voce<float>&) {
+  const float c = phi - v.ys;
+  float dg = 0.f;
+#pragma unroll
+  for (int it = 0; it < kNewtonIters; ++it) {
+    const float ex = it == 0 ? ex0 : expf(-v.d * (alpha + dg));
+    dg = newton_step(dg, c, ex, v, it + 1 == kNewtonIters);
+  }
+  return dg;
+}
+
+__device__ __forceinline__ double history_newton(double phi, double alpha,
+                                                 double ex0,
+                                                 const Voce<double>& v,
+                                                 const Voce<float>& vf) {
+  const double c = phi - v.ys;
+  const float cf = static_cast<float>(c), af = static_cast<float>(alpha);
+  float dgf = 0.f;
+#pragma unroll
+  for (int it = 0; it < kF32Iters; ++it) {
+    const float ex = it == 0 ? static_cast<float>(ex0)
+                             : expf(-vf.d * (af + dgf));
+    dgf = newton_step(dgf, cf, ex, vf, false);
+  }
+  double dg = dgf;
+#pragma unroll
+  for (int it = kF32Iters; it < kNewtonIters; ++it) {
+    const double ex = it == 0 ? ex0 : exp(-v.d * (alpha + dg));
+    dg = newton_step(dg, c, ex, v, it + 1 == kNewtonIters);
+  }
+  return dg;
+}
+
+// radial_rows for the history: the same trial stress, yield check and
+// corrector, with the Newton of history_newton.
+template <typename T>
+__device__ __forceinline__ void history_rows(T x[7], const T e[6],
+                                             const Material<T>& m,
+                                             const Voce<T>& v,
+                                             const Voce<float>& vf) {
+  const T tr = e[0] + e[3] + e[5];
+  const T two_mu = T(2) * m.mu;
+  const T diag = m.lam * tr;
+  const T s[6] = {x[0] + diag + two_mu * e[0], x[1] + two_mu * e[1],
+                  x[2] + two_mu * e[2],        x[3] + diag + two_mu * e[3],
+                  x[4] + two_mu * e[4],        x[5] + diag + two_mu * e[5]};
+  const T alpha_prev = x[6];
+  const T p = (s[0] + s[3] + s[5]) / T(3);
+  const T d0 = s[0] - p, d3 = s[3] - p, d5 = s[5] - p;
+  const T phi_sq = d0 * d0 + d3 * d3 + d5 * d5 +
+                   T(2) * (s[1] * s[1] + s[2] * s[2] + s[4] * s[4]);
+  const T phi_tr = sqrt_(T(1.5) * phi_sq);
+  const T ex0 = exp_(-m.D * alpha_prev);
+  const bool plastic = phi_tr - m.Y - m.S * (T(1) - ex0) > T(0);
+  T dg = T(0);
+  T scale = T(0);
+  if (plastic) {
+    dg = history_newton(phi_tr, alpha_prev, ex0, v, vf);
+    const T safe_phi = phi_tr > T(0) ? phi_tr : T(1);
+    scale = T(3) * m.mu * dg / safe_phi;
+  }
+  x[0] = s[0] - scale * d0;
+  x[1] = s[1] * (T(1) - scale);
+  x[2] = s[2] * (T(1) - scale);
+  x[3] = s[3] - scale * d3;
+  x[4] = s[4] * (T(1) - scale);
+  x[5] = s[5] - scale * d5;
+  x[6] = alpha_prev + dg;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHistThreads, kHistMinBlocks)
 j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
                       const T* __restrict__ scalars, T* __restrict__ out,
                       int64_t n, int64_t t_steps) {
   const Material<T> m = load_material(scalars);
+  const Voce<T> v = voce<T>(m);
+  const Voce<float> vf = voce<float>(m);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t step_stride = kRows * n;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -182,21 +366,41 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
     T x[7];
 #pragma unroll
     for (int r = 0; r < 7; ++r) x[r] = xi[r * n + j];
-    T e_next[6];
-    if (t_steps > 0) {
+    const T* __restrict__ col = de_hist + j;
+    auto load = [&](T (&dst)[6], int64_t step) {
 #pragma unroll
-      for (int r = 0; r < 6; ++r) e_next[r] = de_hist[r * n + j];
-    }
-    for (int64_t t = 0; t < t_steps; ++t) {
-      T e[6];
+      for (int r = 0; r < 6; ++r) dst[r] = col[step * step_stride + r * n];
+    };
+    if constexpr (kHistAhead<T> == 1) {
+      T next[6];
+      if (t_steps > 0) load(next, 0);
+      for (int64_t t = 0; t < t_steps; ++t) {
+        T e[6];
 #pragma unroll
-      for (int r = 0; r < 6; ++r) e[r] = e_next[r];
-      if (t + 1 < t_steps) {
-        const T* __restrict__ nxt = de_hist + (t + 1) * step_stride;
-#pragma unroll
-        for (int r = 0; r < 6; ++r) e_next[r] = nxt[r * n + j];
+        for (int r = 0; r < 6; ++r) e[r] = next[r];
+        if (t + 1 < t_steps) load(next, t + 1);
+        history_rows(x, e, m, v, vf);
       }
-      radial_rows(x, e, m);
+    } else {
+      // steps t + 1 and t + 2 in flight while step t is computed: the
+      // loop is unrolled by two so that each buffer is refilled right
+      // after it is read, with no register copy waiting on a load
+      T even[6], odd[6];
+      if (t_steps > 0) load(even, 0);
+      if (t_steps > 1) load(odd, 1);
+      for (int64_t t = 0; t < t_steps; t += 2) {
+        T e[6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) e[r] = even[r];
+        if (t + 2 < t_steps) load(even, t + 2);
+        history_rows(x, e, m, v, vf);
+        if (t + 1 < t_steps) {
+#pragma unroll
+          for (int r = 0; r < 6; ++r) e[r] = odd[r];
+          if (t + 3 < t_steps) load(odd, t + 3);
+          history_rows(x, e, m, v, vf);
+        }
+      }
     }
     store_state(out, x, j, n);
   }
@@ -209,17 +413,12 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 // symmetric sigma (N, 3, 3), both entries of each off-diagonal pair
 // written. The TPU wrappers packed these into a (16, B) block with B
 // padded to the 2048-lane tile (a transpose and a pad each way,
-// pallas_radial_return.py:775-810, :724-759); here each thread reads its
-// point's rows in place and writes its outputs in place, no pack, no pad.
+// pallas_radial_return.py:775-810, :724-759); here no pack, no pad.
 //
 // What bounds them on an H100 (3.35 TB/s HBM3 at 700 W): memory.
 // j2_aos_step reads 7 + 9 + 9 and writes 7 + 9 values per point (328 B in
 // f64, 164 B in f32); j2_total_step reads 7 + 9 and writes 7 + 9 (256 B
 // in f64, 128 B in f32). The Newton corrector is as in the SoA kernels.
-// Rows of 56 B and 72 B make a warp's loads strided: each load
-// instruction touches 32 rows, and the L1 serves the other values of the
-// same rows to the following loads. Coalescing through shared memory is
-// later work.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -242,34 +441,81 @@ __device__ __forceinline__ void store_sigma(T* __restrict__ out,
 // stress written as the new state and as sigma. The body is radial_rows,
 // whose shear update s * (1 - scale) is _radial_rows' and the plain
 // version's; _kernel wrote s - scale * s, equal up to rounding.
+//
+// Read in place, one thread per point, the 56 B and 72 B rows made every
+// warp load instruction span 32 rows (32 sectors for 256 useful bytes),
+// and the time followed the access pattern, not the bytes (46% of the
+// byte bound). So each block stages a tile of kAosTile points through
+// shared memory: the tile's rows are contiguous slabs (7 P, 9 P and 9 P
+// values), copied with cp.async, consecutive threads on consecutive words.
+// Each thread then reads its own rows from shared memory: strides of 7
+// and 9 words, both odd, hit distinct banks for 4 B and 8 B words. It
+// writes xi' over its xi row and sigma over its grad_u row, and the block
+// stores both slabs coalesced. Any N and any base address a contiguous
+// view can have (a slab is copied word by word, so 8 B alignment is all
+// it needs); the last tile is ragged.
+// ---------------------------------------------------------------------------
+
+constexpr int kAosTile = 128;     // points (and threads) per block
+constexpr int kAosMinBlocks = 8;  // per SM: 25 KB of shared memory each in f64
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_in(T* __restrict__ dst,
+                                        const T* __restrict__ src, int count) {
+  for (int i = threadIdx.x; i < count; i += kAosTile) cp_async(dst + i, src + i);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_out(T* __restrict__ dst,
+                                         const T* __restrict__ src,
+                                         int count) {
+  for (int i = threadIdx.x; i < count; i += kAosTile) dst[i] = src[i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAosTile, kAosMinBlocks)
 j2_aos_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
                    const T* __restrict__ grad_u_prev,
                    const T* __restrict__ scalars, T* __restrict__ xi_out,
                    T* __restrict__ sigma_out, int64_t n) {
+  __shared__ T sx[7 * kAosTile];   // xi rows, then xi' rows
+  __shared__ T sg[9 * kAosTile];   // grad_u rows, then sigma rows
+  __shared__ T sg0[9 * kAosTile];  // grad_u_prev rows
   const Material<T> m = load_material(scalars);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    const T* __restrict__ x_in = xi + 7 * j;
-    const T* __restrict__ g = grad_u + 9 * j;
-    const T* __restrict__ g0 = grad_u_prev + 9 * j;
-    T x[7];
+  const int tid = threadIdx.x;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kAosTile; base < n;
+       base += static_cast<int64_t>(gridDim.x) * kAosTile) {
+    const int count =
+        static_cast<int>(n - base < kAosTile ? n - base : kAosTile);
+    copy_in(sx, xi + 7 * base, 7 * count);
+    copy_in(sg, grad_u + 9 * base, 9 * count);
+    copy_in(sg0, grad_u_prev + 9 * base, 9 * count);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tid < count) {
+      T* __restrict__ xr = sx + 7 * tid;
+      T* __restrict__ g = sg + 9 * tid;
+      const T* __restrict__ g0 = sg0 + 9 * tid;
+      T x[7];
 #pragma unroll
-    for (int r = 0; r < 7; ++r) x[r] = x_in[r];
-    // the order of make_j2_radial_return's increment
-    const T e[6] = {g[0] - g0[0],
-                    T(0.5) * (g[1] + g[3] - g0[1] - g0[3]),
-                    T(0.5) * (g[2] + g[6] - g0[2] - g0[6]),
-                    g[4] - g0[4],
-                    T(0.5) * (g[5] + g[7] - g0[5] - g0[7]),
-                    g[8] - g0[8]};
-    radial_rows(x, e, m);
-    T* __restrict__ x_out = xi_out + 7 * j;
+      for (int r = 0; r < 7; ++r) x[r] = xr[r];
+      // the order of make_j2_radial_return's increment
+      const T e[6] = {g[0] - g0[0],
+                      T(0.5) * (g[1] + g[3] - g0[1] - g0[3]),
+                      T(0.5) * (g[2] + g[6] - g0[2] - g0[6]),
+                      g[4] - g0[4],
+                      T(0.5) * (g[5] + g[7] - g0[5] - g0[7]),
+                      g[8] - g0[8]};
+      radial_rows(x, e, m);
 #pragma unroll
-    for (int r = 0; r < 7; ++r) x_out[r] = x[r];
-    store_sigma(sigma_out + 9 * j, x);
+      for (int r = 0; r < 7; ++r) xr[r] = x[r];
+      store_sigma(g, x);
+    }
+    __syncthreads();
+    copy_out(xi_out + 7 * base, sx, 7 * count);
+    copy_out(sigma_out + 9 * base, sg, 9 * count);
+    __syncthreads();  // the next tile's copies overwrite sx and sg
   }
 }
 
@@ -277,7 +523,10 @@ j2_aos_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
 // 624-693): state [plastic strain pe (6), alpha]; the trial stress comes
 // from the elastic strain sym(grad_u) - pe, the plastic strain moves by
 // dp = coef * dev(s_tr), and sigma = s_tr - 2 mu dp. grad_u_prev plays no
-// part (the total form is parametrized by the current strain).
+// part (the total form is parametrized by the current strain). Each
+// thread reads its point's rows in place, one thread per point: each
+// warp load instruction touches 32 rows, and the L1 serves the other
+// values of the same rows to the following loads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
@@ -321,25 +570,46 @@ j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
   }
 }
 
-// Enough blocks to fill every SM at the kernel's occupancy, and no more
-// than the points need; the grid-stride loop covers the rest.
+// Enough blocks of `threads` to fill every SM at the kernel's occupancy,
+// and no more than `needed`; the kernels' stride loops cover the rest.
 template <typename Kernel>
-int grid_for(Kernel kernel, int64_t n) {
+int grid_for(Kernel kernel, int threads, int64_t needed) {
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   const int64_t full = static_cast<int64_t>(sms > 0 ? sms : 1) *
                        (per_sm > 0 ? per_sm : 1);
-  const int64_t needed = (n + kThreads - 1) / kThreads;
   return static_cast<int>(needed < full ? needed : full);
+}
+
+// The grid of a stride loop over `needed` block-sized pieces of work,
+// with every block taking the same number of pieces: as many rounds as
+// grid_for's full grid needs, and no more blocks than those rounds need.
+// A full grid that leaves a last round to a few blocks (8192 pieces on
+// 264 blocks: 31 rounds and 8 blocks alone in a 32nd) runs that round
+// with the card nearly idle.
+template <typename Kernel>
+int balanced_grid(Kernel kernel, int threads, int64_t needed) {
+  const int64_t full = grid_for(kernel, threads, needed);
+  const int64_t rounds = (needed + full - 1) / full;
+  return static_cast<int>((needed + rounds - 1) / rounds);
+}
+
+// The shared-memory kernel asks for the largest carveout, so that as many
+// blocks fit on an SM as its registers allow.
+template <typename Kernel>
+void prefer_shared(Kernel kernel) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename T>
 int launch_step(const void* xi, const void* de, const void* scalars, void* out,
                 long long n, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_soa_step_kernel<T>, n);
+  const int grid = grid_for(j2_soa_step_kernel<T>, kThreads,
+                            (n + kThreads - 1) / kThreads);
   j2_soa_step_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(de),
       static_cast<const T*>(scalars), static_cast<T*>(out), n);
@@ -350,10 +620,12 @@ template <typename T>
 int launch_history(const void* xi, const void* de_hist, const void* scalars,
                    void* out, long long n, long long t_steps, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_soa_history_kernel<T>, n);
-  j2_soa_history_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xi), static_cast<const T*>(de_hist),
-      static_cast<const T*>(scalars), static_cast<T*>(out), n, t_steps);
+  const int grid = balanced_grid(j2_soa_history_kernel<T>, kHistThreads,
+                                 (n + kHistThreads - 1) / kHistThreads);
+  j2_soa_history_kernel<T>
+      <<<grid, kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(xi), static_cast<const T*>(de_hist),
+          static_cast<const T*>(scalars), static_cast<T*>(out), n, t_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,8 +634,10 @@ int launch_aos(const void* xi, const void* grad_u, const void* grad_u_prev,
                const void* scalars, void* xi_out, void* sigma_out,
                long long n, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_aos_step_kernel<T>, n);
-  j2_aos_step_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  prefer_shared(j2_aos_step_kernel<T>);
+  const int grid = grid_for(j2_aos_step_kernel<T>, kAosTile,
+                            (n + kAosTile - 1) / kAosTile);
+  j2_aos_step_kernel<T><<<grid, kAosTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(grad_u),
       static_cast<const T*>(grad_u_prev), static_cast<const T*>(scalars),
       static_cast<T*>(xi_out), static_cast<T*>(sigma_out), n);
@@ -374,7 +648,8 @@ template <typename T>
 int launch_total(const void* xi, const void* grad_u, const void* scalars,
                  void* xi_out, void* sigma_out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_total_step_kernel<T>, n);
+  const int grid = grid_for(j2_total_step_kernel<T>, kThreads,
+                            (n + kThreads - 1) / kThreads);
   j2_total_step_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(grad_u),
       static_cast<const T*>(scalars), static_cast<T*>(xi_out),

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain
-C interface, under ``build/cmad_tpu_torch/`` at the root of the checkout,
-keyed by a hash of the source and the flags: a changed source builds
-anew, an unchanged one is loaded from the build directory. Nothing is
+Every ``*.cu`` of ``csrc/`` is compiled with ``nvcc`` into one shared
+library with a plain C interface, under ``build/cmad_tpu_torch/`` at the
+root of the checkout, keyed by a hash of every file under ``csrc/``
+(headers included) and the flags: a changed source builds anew, an
+unchanged one is loaded from the build directory. Nothing is
 built or imported when this module is imported; the first kernel launch
 builds.
 """
@@ -19,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "j2_radial_return.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cmad_tpu_torch"
 
 # no --use_fast_math: __expf would break the f32 tolerance
@@ -39,10 +40,17 @@ def _nvcc() -> str:
         "kernels of cmad_tpu_torch cannot be built")
 
 
+def sources() -> list[Path]:
+    """The translation units: every ``*.cu`` under ``csrc/``."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libj2_radial_return_{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(CSRC)).encode() + b"\0")
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libj2_radial_return_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, str]:
@@ -58,11 +66,12 @@ def build() -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        srcs = [str(p) for p in sources()]
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+                f"nvcc failed ({proc.returncode}) on {srcs}:\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, path)
     finally:

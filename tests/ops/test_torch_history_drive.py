@@ -115,6 +115,36 @@ def test_wide_layout_bit_identical_to_soa8(case):
     assert torch.equal(_from_wide(wide), soa8)
 
 
+@pytest.fixture(scope="module")
+def jax_scan_drive(case):
+    """The JAX drive's ``lax.scan`` path (one jitted function; each shape
+    below compiles once)."""
+    p = case[0]
+    return jax_drive(p, fused=False)
+
+
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("t_steps", [0, 1, 2])
+def test_plain_drive_edges_match_jax_scan(case, jax_scan_drive, n, t_steps):
+    """The plain history drive at the shortest histories and smallest
+    batches that the kernel's edge cases exercise on the card: T = 0
+    returns the initial state, as the JAX scan does."""
+    p, tp, _xi0, _de = case
+    rng = np.random.default_rng(100 + 10 * n + t_steps)
+    xi0 = np.zeros((8, n))
+    xi0[:6] = rng.normal(0.0, 30.0, size=(6, n))
+    xi0[6] = np.abs(rng.normal(0.0, 0.005, size=n))
+    de = np.zeros((t_steps, 8, n))
+    de[:, :6] = rng.normal(0.0, 0.4e-3, size=(t_steps, 6, n))
+    ref = jax_scan_drive(jnp.asarray(xi0), jnp.asarray(de), p.values)
+    out = make_j2_history_drive(tp)(torch.tensor(xi0), torch.tensor(de),
+                                    tp.values)
+    assert out.shape == (8, n)
+    assert_rows_close(out, ref)
+    if t_steps == 0:
+        np.testing.assert_array_equal(out.numpy(), xi0)
+
+
 @pytest.mark.parametrize("kwargs", [
     {"layout": "wide", "record_alpha": True},
     {"layout": "wide", "fused": False},

@@ -216,6 +216,88 @@ def test_dispatch_rejects_other_devices(params):
 def test_kernel_build_module_imports_without_nvcc():
     from cmad_tpu_torch.ops import _build
 
-    assert _build.SOURCE.exists()
+    assert _build.sources() and all(p.exists() for p in _build.sources())
     assert _build.library_path().name.startswith("libj2_radial_return_")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def _load_build_copy(tmp_path):
+    """``ops/_build.py`` of a copy of the package under ``tmp_path``,
+    loaded from the copy (so its ``csrc/`` is the copy's)."""
+    import importlib.util
+    import shutil
+
+    from cmad_tpu_torch.ops import _build
+
+    pkg = tmp_path / "cmad_tpu_torch"
+    shutil.copytree(_build.CSRC, pkg / "csrc")
+    (pkg / "ops").mkdir()
+    shutil.copy(_build.__file__, pkg / "ops" / "_build.py")
+    spec = importlib.util.spec_from_file_location(
+        "_build_copy", pkg / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, pkg / "csrc"
+
+
+def test_library_path_keys_every_csrc_file(tmp_path):
+    """A change to any file under ``csrc/`` (a header included) gives a
+    new library path, so a stale library is never loaded; every ``.cu``
+    is a translation unit. No nvcc needed."""
+    mod, csrc = _load_build_copy(tmp_path)
+    first = mod.library_path()
+    assert first.parent == tmp_path / "build" / "cmad_tpu_torch"
+    assert mod.library_path() == first
+    header = csrc / "extra.cuh"
+    header.write_text("// a header\n")
+    with_header = mod.library_path()
+    assert with_header != first
+    header.write_text("// a changed header\n")
+    assert mod.library_path() not in (first, with_header)
+    header.unlink()
+    assert mod.library_path() == first
+    cu = sorted(csrc.glob("*.cu"))[0]
+    cu.write_text(cu.read_text() + "\n")
+    assert mod.library_path() != first
+    (csrc / "second.cu").write_text("// another unit\n")
+    assert [p.name for p in mod.sources()] == sorted(
+        [cu.name, "second.cu"])
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118j2_soa_step_kernelIdEEvPKT_S3_S3_PS1_l
+        /*0000*/                   LDG.E.64 R4, desc[UR4][R2.64] ;
+        /*0010*/                   DFMA R4, R2, R4, R6 ;
+        /*0020*/                   DADD R4, R2, R4 ;
+        /*0030*/                   MUFU.RSQ64H R5, R3 ;
+        /*0040*/              @!P1 BRA `(.L_x_1) ;
+        /*0050*/                   MUFU.RCP64H R5, R3 ;
+        /*0060*/                   DFMA R4, R2, R4, R6 ;
+        /*0070*/                   DMUL R4, R2, R4 ;
+        /*0080*/               @P0 CALL.REL.NOINC `(.L_x_2) ;
+.L_x_1:
+        /*0090*/                   BSYNC B0 ;
+        /*00a0*/                   STG.E.64 desc[UR4][R2.64], R4 ;
+        /*00b0*/                   EXIT ;
+.L_x_2:
+        /*00c0*/                   DFMA R4, R2, R4, R6 ;
+        /*00d0*/                   RET.REL.NODEC R2 0x0 ;
+"""
+
+
+def test_sass_counts_split_every_update_from_plastic():
+    """The bound's operation counts: a fused multiply-add counts 2, an
+    add or multiply 1; what a predicated forward branch skips over a
+    divide is the plastic update's extra; called slow paths are left
+    out."""
+    from cmad_tpu_torch.ops import _sass
+
+    funcs = _sass.parse(_SASS)
+    assert list(funcs) == ["j2_soa_step<double>"]
+    c = _sass.kernel_counts(funcs["j2_soa_step<double>"])
+    assert c["elastic"] == {"fp64": 3, "fp32": 0}
+    assert c["plastic"] == {"fp64": 3, "fp32": 0}
+    assert c["updates"] == 1
+    assert c["mnemonics"] == {"DADD": 1, "DFMA": 2, "DMUL": 1,
+                              "MUFU.RCP64H": 1, "MUFU.RSQ64H": 1}
