@@ -57,7 +57,13 @@ N_HIST = 262_147            # parity of j2_soa_history
 # the one-step-ahead prefetch, and two long histories
 N_HIST_EDGES = (1, 33, 255, 257, N_HIST)
 T_HIST = (0, 1, 2, 13, 64)
-AOS_TILE = 128              # points per block of j2_aos_step
+# the f64 history outside the range of its f32 Newton phase: T_RANGE steps
+# of the headline's increment size (1.5e-3, so that dg is large enough
+# that two f64 iterations from 0 do not reach the fixed point), N_HIST
+# points, the materials of range_scalars
+T_RANGE = 8
+RANGE_SCALE = 1e37
+AOS_TILE = 128  # points per block of both AoS kernels (kAosTile, kTotalTile)
 N_DRIVE, T_DRIVE = 2_097_152, 64   # the history-drive headline
 N_FE, FE_STEPS, FE_Q = 4_194_304, 8, 8
 N_MP = 4_194_304            # the batched return map (bench.py:355)
@@ -68,6 +74,9 @@ ROUNDS, REPS = 3, 5         # timing: best of 3 rounds of 5 chained calls
 # bounds: per state row, max|kernel - plain| <= bound * max(1, max|row|)
 STEP_BOUND = {"float64": 1e-11, "float32": 1e-5}   # nvcc contracts FMAs
 HIST_BOUND = {"float64": 1e-10, "float32": 1e-4}   # error grows over T
+# the f64 history on a material scaled by RANGE_SCALE against the scaled
+# output on the unscaled one: both converge to the f64 fixed point
+RANGE_BOUND = 1e-13
 GRAD_RTOL = 1e-8
 YIELD_TOL = 1e-9            # |phi - Y - H(alpha)| <= YIELD_TOL * Y
 # generic Newton vs radial return: the Newton stops once ||r|| < abs_tol
@@ -164,6 +173,33 @@ def bound_ms(nbytes: float, counts: dict, updates: float,
     if t_bytes >= t_ops:
         return t_bytes, "bytes", t_bytes, t_ops
     return t_ops, "operations", t_bytes, t_ops
+
+
+def range_scalars(sc):
+    """The two materials of the out-of-f32-range history cases, as
+    [mu, lam, Y, S, D], from the headline's f64 ``sc``: (a) mu, lam, Y
+    and S x RANGE_SCALE, so that trial stresses reach about 1e39 with dg
+    unchanged; (b) moderate stresses, with S = 1e5 and D = 4e33: S D =
+    4e38, beyond f32's 3.4e38."""
+    mu, lam, Y, S, D = sc.tolist()
+    k = RANGE_SCALE
+    return {"a: scaled 1e37": sc.new_tensor([mu * k, lam * k, Y * k, S * k, D]),
+            "b: S D 4e38": sc.new_tensor([mu, lam, Y, 1e5, 4e33])}
+
+
+def yield_residual(out, plastic, sc) -> float:
+    """max |phi - Y - S (1 - exp(-D alpha))| / Y over the ``plastic``
+    points of an (8, N) state."""
+    import torch
+
+    _mu, _lam, Y, S, D = (float(v) for v in sc.tolist())
+    p = (out[0] + out[3] + out[5]) / 3.0
+    phi = torch.sqrt(1.5 * ((out[0] - p) ** 2 + (out[3] - p) ** 2
+                            + (out[5] - p) ** 2
+                            + 2.0 * (out[1] ** 2 + out[2] ** 2
+                                     + out[4] ** 2)))
+    resid = (phi - Y - S * (1.0 - torch.exp(-D * out[6])))[plastic]
+    return float(resid.abs().max()) / Y
 
 
 def mises_3x3(s):
@@ -349,9 +385,9 @@ def main() -> int:
     lap("parity-step")
 
     # ---------------- 4. parity-history ----------------
-    def history_input(n, t_steps, dtype):
+    def history_input(n, t_steps, dtype, std=1.5e-3 / 16):
         de_hist = torch.zeros((t_steps, 8, n), device=dev, dtype=dtype)
-        de_hist[:, :6] = (1.5e-3 / 16) * torch.randn(
+        de_hist[:, :6] = std * torch.randn(
             (t_steps, 6, n), generator=gen, device=dev, dtype=dtype)
         return de_hist
 
@@ -397,23 +433,47 @@ def main() -> int:
         check_rows("parity-history", f"{name} j2_soa_history vs chained "
                    f"j2_soa_step", out, xs, HIST_BOUND[name])
         if dt == torch.float64:
-            mu, lam, Y, S, D = (float(v) for v in scalars[dt].tolist())
             plastic = out[6] > before[6]
-            p = (out[0] + out[3] + out[5]) / 3.0
-            phi = torch.sqrt(1.5 * ((out[0] - p) ** 2 + (out[3] - p) ** 2
-                                    + (out[5] - p) ** 2
-                                    + 2.0 * (out[1] ** 2 + out[2] ** 2
-                                             + out[4] ** 2)))
-            resid = (phi - Y - S * (1.0 - torch.exp(-D * out[6])))[plastic]
-            max_resid = float(resid.abs().max())
+            resid = yield_residual(out, plastic, scalars[dt])
             say("parity-history", f"{name} N={N_HIST} T={T}: "
                                   f"{int(plastic.sum())} points yield in "
                                   f"the last step; max |phi - Y - "
-                                  f"H(alpha)| {max_resid:.3e} (bound "
-                                  f"{YIELD_TOL * Y:g})")
-            if not max_resid <= YIELD_TOL * Y:
+                                  f"H(alpha)| / Y {resid:.3e} (bound "
+                                  f"{YIELD_TOL:g})")
+            if not resid <= YIELD_TOL:
                 raise RuntimeError("parity-history: yield condition missed")
         del xi0, de_hist, out, before, xs
+    # f64 outside the range of the kernel's f32 Newton phase: against the
+    # plain loop and the yield condition; (a) also against RANGE_SCALE
+    # times the kernel's output on the headline material
+    dt = torch.float64
+    xi0 = zero_state(N_HIST, dt)
+    de_hist = history_input(N_HIST, T_RANGE, dt, std=1.5e-3)
+    unscaled = cuda_rr.soa_history_cuda(xi0, de_hist, scalars[dt])
+    for label, sc in range_scalars(scalars[dt]).items():
+        out = cuda_rr.soa_history_cuda(xi0, de_hist, sc)
+        before = cuda_rr.soa_history_cuda(xi0, de_hist[:-1], sc)
+        check_rows("parity-history", f"float64 {label} N={N_HIST} "
+                   f"T={T_RANGE} vs the plain loop", out,
+                   plain_drive(xi0, de_hist, sc), HIST_BOUND["float64"])
+        plastic = out[6] > before[6]
+        if not bool(plastic.any()):
+            raise RuntimeError(f"parity-history: {label}: no point yields")
+        resid = yield_residual(out, plastic, sc)
+        say("parity-history", f"float64 {label}: {int(plastic.sum())} "
+                              f"points yield in the last step; max |phi - "
+                              f"Y - H(alpha)| / Y {resid:.3e} (bound "
+                              f"{YIELD_TOL:g})")
+        if not resid <= YIELD_TOL:
+            raise RuntimeError(f"parity-history: {label}: yield condition "
+                               f"missed")
+        if label.startswith("a"):
+            k = out.new_tensor([RANGE_SCALE] * 6 + [1.0, 1.0])[:, None]
+            check_rows("parity-history", f"float64 {label} vs "
+                       f"{RANGE_SCALE:g} x the headline material's",
+                       out, k * unscaled, RANGE_BOUND)
+        del out, before
+    del xi0, de_hist, unscaled
     sync()
     lap("parity-history")
 
@@ -637,32 +697,43 @@ def main() -> int:
             say(phase, f"{name}: sigma exactly symmetric")
             del g, z, g2, x0, k1, k2, p1, p2
         results[f"{form}_err"] = max(errs)
-        if form == "rate":
-            # the ragged last tile, and inputs that start one row into
-            # their storage (56 B into xi, 72 B into grad_u)
-            for dt in dtypes:
-                name = str(dt).split(".")[-1]
-                plain = aos_plain[form](params[dt])
-                pv, sc = params[dt].values, scalars[dt]
-                for n in (AOS_TILE - 1, AOS_TILE + 1):
-                    for offset in (0, 1):
-                        g = sym_grad(n + offset, dt)[offset:]
-                        g0 = (0.3 * sym_grad(n + offset, dt))[offset:]
-                        x0 = unpack_state_soa(
-                            advanced(n + offset, dt)[0]).contiguous()[offset:]
-                        if offset and x0.data_ptr() % 16 == 0:
-                            raise RuntimeError(f"{phase}: the view is "
-                                               f"16 B aligned")
-                        k1 = cuda_rr.aos_step_cuda(x0, g, g0, sc)
-                        p1 = plain(x0, g, g0, pv)
-                        for label, a, b in (("xi", k1[0], p1[0]),
-                                            ("sigma", k1[1], p1[1])):
-                            check_cols(phase, f"{name} N={n} offset "
-                                       f"{offset} row {label}", a, b,
-                                       STEP_BOUND[name])
-                        if not torch.equal(k1[1], k1[1].transpose(1, 2)):
-                            raise RuntimeError(f"{phase}: sigma is not "
-                                               f"symmetric")
+        # ragged last tiles (N = tile - 1, tile + 1, 2 tile + 1), and
+        # inputs that start one row into their storage (56 B into xi,
+        # 72 B into grad_u), for both forms
+        for dt in dtypes:
+            name = str(dt).split(".")[-1]
+            plain = aos_plain[form](params[dt])
+            pv, sc = params[dt].values, scalars[dt]
+            for n in (AOS_TILE - 1, AOS_TILE + 1, 2 * AOS_TILE + 1):
+                for offset in (0, 1):
+                    m = n + offset
+                    g = sym_grad(m, dt)[offset:]
+                    g0 = (0.3 * sym_grad(m, dt))[offset:]
+                    if form == "rate":
+                        x0 = unpack_state_soa(advanced(m, dt)[0])
+                    else:  # a plastic strain and alpha from one step
+                        x0 = plain(aos_zero(m, dt), 0.8 * sym_grad(m, dt),
+                                   torch.zeros_like(g0), pv)[0]
+                    x0 = x0.contiguous()[offset:]
+                    if offset and (x0.data_ptr() % 16 == 0
+                                   or g.data_ptr() % 16 == 0):
+                        raise RuntimeError(f"{phase}: the view is "
+                                           f"16 B aligned")
+                    k1 = aos_kernel[form](x0, g, g0, sc)
+                    p1 = plain(x0, g, g0, pv)
+                    frac = float((k1[0][:, 6] > x0[:, 6]).double().mean())
+                    for label, a, b in (("xi", k1[0], p1[0]),
+                                        ("sigma", k1[1], p1[1])):
+                        check_cols(phase, f"{name} N={n} offset {offset} "
+                                   f"(plastic fraction {frac:.3f}) row "
+                                   f"{label}", a, b, STEP_BOUND[name])
+                    if not torch.equal(k1[1], k1[1].transpose(1, 2)):
+                        raise RuntimeError(f"{phase}: N={n} offset "
+                                           f"{offset}: sigma is not "
+                                           f"symmetric")
+            say(phase, f"{name}: sigma exactly symmetric at N = "
+                       f"{AOS_TILE - 1}, {AOS_TILE + 1}, {2 * AOS_TILE + 1}, "
+                       f"offsets 0 and 1")
         sync()
         lap(phase)
 

@@ -11,7 +11,8 @@
 //   j2_total_step  <- _kernel_total (K5), the total-form step.
 //
 // The first two read the component-major (SoA) layout described below;
-// the AoS kernels are described where they are defined.
+// the AoS kernels, which share one staged tile loop, are described where
+// they are defined.
 //
 // Layout (component-major, contract in ops/j2_radial_return.py): row r of
 // point j sits at r*N + j. Consecutive threads own consecutive points, so
@@ -95,6 +96,22 @@ struct Corrector {
   bool plastic;
 };
 
+// The plastic multiplier of a yielding point: kNewtonIters Newton
+// iterations from dg = 0 on g = phi_tr - 3 mu dg - Y - S (1 - ex).
+template <typename T>
+__device__ __forceinline__ T voce_newton(T phi_tr, T alpha_prev,
+                                        const Material<T>& m) {
+  T dg = T(0);
+#pragma unroll
+  for (int k = 0; k < kNewtonIters; ++k) {
+    const T ex = exp_(-m.D * (alpha_prev + dg));
+    const T g = phi_tr - T(3) * m.mu * dg - m.Y - m.S * (T(1) - ex);
+    const T dgd = -T(3) * m.mu - m.S * m.D * ex;
+    dg = fmax_(dg - g / dgd, T(0));
+  }
+  return dg;
+}
+
 template <typename T>
 __device__ __forceinline__ Corrector<T> j2_corrector(const T s[6],
                                                      T alpha_prev,
@@ -114,15 +131,7 @@ __device__ __forceinline__ Corrector<T> j2_corrector(const T s[6],
   // Elastic points keep dg = 0, which is what the TPU kernel's select
   // after the maximum gives them; they never evaluate g / dgd.
   T dg = T(0);
-  if (c.plastic) {
-#pragma unroll
-    for (int k = 0; k < kNewtonIters; ++k) {
-      const T ex = exp_(-m.D * (alpha_prev + dg));
-      const T g = phi_tr - T(3) * m.mu * dg - m.Y - m.S * (T(1) - ex);
-      const T dgd = -T(3) * m.mu - m.S * m.D * ex;
-      dg = fmax_(dg - g / dgd, T(0));
-    }
-  }
+  if (c.plastic) dg = voce_newton(phi_tr, alpha_prev, m);
   c.dg = dg;
   c.safe_phi = phi_tr > T(0) ? phi_tr : T(1);
   return c;
@@ -212,14 +221,19 @@ j2_soa_step_kernel(const T* __restrict__ xi, const T* __restrict__ de,
 // - In f64 the first kF32Iters iterations run in f32 (MUFU.EX2 and a fast
 //   reciprocal, on the FP32 pipe); they bring dg to f32 precision, and
 //   the last two run in f64 from there: Newton's quadratic convergence
-//   takes an f32-accurate dg to the f64 fixed point in one iteration
-//   (a trial stress beyond f32's range, 3.4e38, would not get there).
+//   takes an f32-accurate dg to the f64 fixed point in one iteration.
+//   Only where f32 can hold the iteration: phi - (Y + S), 3 mu, Y + S, S
+//   and S D within kF32Range (below). A point outside it (a trial stress
+//   beyond f32's range, or S D above it) would leave the f32 phase with a
+//   meaningless dg, and silently so: fmaxf(NaN, 0) is 0. It takes the
+//   slow path history_newton_exact instead, j2_corrector's Newton in f64,
+//   and is classified and updated as in j2_soa_step.
 // - Every iteration but the last divides with a fast reciprocal (f64:
 //   MUFU.RCP64H and one cubic refinement; f32: __fdividef); the last one
 //   is the exact IEEE divide, as j2_corrector's.
-// - No launch bound below the registers this takes (112 in f64): a
+// - No launch bound below the registers this takes (116 in f64): a
 //   smaller cap spilled inside the Newton and doubled the time. The 16
-//   warps per SM that 112 registers leave keep two steps of strain in
+//   warps per SM that 116 registers leave keep two steps of strain in
 //   flight each (the loop is unrolled by two, so no register copy waits
 //   on a load), and the grid is balanced so that no last round runs with
 //   a few blocks alone: an all-elastic drive keeps its bytes' time.
@@ -276,12 +290,28 @@ __device__ __forceinline__ double newton_step(double dg, double c, double ex,
   return fmax(dg - (exact ? g / dgd : g * rcp_fast(dgd)), 0.0);
 }
 
+// The f32 phase of the f64 Newton holds only for values within kF32Range
+// (and 3 mu at least 1 / kF32Range): far enough inside f32's 3.4e38 that
+// the sums of an iteration stay finite and the fast divide's divisor stays
+// below 2^126, beyond which __fdividef returns 0. NaN fails every test.
+constexpr float kF32Range = 0x1p100f;
+
+// The largest |phi - (Y + S)| the f32 phase takes: kF32Range when the
+// material's constants are in range, else -1 (no point).
+__device__ __forceinline__ float f32_phase_limit(const Voce<float>& v) {
+  const bool ok = v.mu3 >= 1.f / kF32Range && v.mu3 <= kF32Range &&
+                  fabsf(v.ys) <= kF32Range && fabsf(v.s) <= kF32Range &&
+                  fabsf(v.sd) <= kF32Range;
+  return ok ? kF32Range : -1.f;
+}
+
 // The plastic multiplier of a yielding point: 8 Newton iterations from
 // dg = 0, ex0 = exp(-D alpha).
 __device__ __forceinline__ float history_newton(float phi, float alpha,
                                                 float ex0,
+                                                const Material<float>&,
                                                 const Voce<float>& v,
-                                                const Voce<float>&) {
+                                                const Voce<float>&, float) {
   const float c = phi - v.ys;
   float dg = 0.f;
 #pragma unroll
@@ -292,10 +322,23 @@ __device__ __forceinline__ float history_newton(float phi, float alpha,
   return dg;
 }
 
+// The slow path of the f64 Newton, for a point outside the f32 phase's
+// range: j2_corrector's Newton, all in f64. Not inlined, like the IEEE
+// divide's slow path: it stays out of the hot loop's code, and out of the
+// operations that ops/_sass.py counts per update.
+__device__ __noinline__ double history_newton_exact(double phi, double alpha,
+                                                    double mu, double Y,
+                                                    double S, double D) {
+  return voce_newton(phi, alpha, Material<double>{mu, 0.0, Y, S, D});
+}
+
+// f32_limit: f32_phase_limit(vf), computed once per thread.
 __device__ __forceinline__ double history_newton(double phi, double alpha,
                                                  double ex0,
+                                                 const Material<double>& m,
                                                  const Voce<double>& v,
-                                                 const Voce<float>& vf) {
+                                                 const Voce<float>& vf,
+                                                 float f32_limit) {
   const double c = phi - v.ys;
   const float cf = static_cast<float>(c), af = static_cast<float>(alpha);
   float dgf = 0.f;
@@ -311,6 +354,12 @@ __device__ __forceinline__ double history_newton(double phi, double alpha,
     const double ex = it == 0 ? ex0 : exp(-v.d * (alpha + dg));
     dg = newton_step(dg, c, ex, v, it + 1 == kNewtonIters);
   }
+  // Outside the f32 phase's range this dg is meaningless: replace it.
+  // Tested here, on the phase's inputs, and not before the phase, so that
+  // the points in range run the phase with no branch around it.
+  if (!(fabsf(cf) <= f32_limit)) {
+    dg = history_newton_exact(phi, alpha, m.mu, m.Y, m.S, m.D);
+  }
   return dg;
 }
 
@@ -320,7 +369,8 @@ template <typename T>
 __device__ __forceinline__ void history_rows(T x[7], const T e[6],
                                              const Material<T>& m,
                                              const Voce<T>& v,
-                                             const Voce<float>& vf) {
+                                             const Voce<float>& vf,
+                                             float f32_limit) {
   const T tr = e[0] + e[3] + e[5];
   const T two_mu = T(2) * m.mu;
   const T diag = m.lam * tr;
@@ -338,7 +388,7 @@ __device__ __forceinline__ void history_rows(T x[7], const T e[6],
   T dg = T(0);
   T scale = T(0);
   if (plastic) {
-    dg = history_newton(phi_tr, alpha_prev, ex0, v, vf);
+    dg = history_newton(phi_tr, alpha_prev, ex0, m, v, vf, f32_limit);
     const T safe_phi = phi_tr > T(0) ? phi_tr : T(1);
     scale = T(3) * m.mu * dg / safe_phi;
   }
@@ -359,6 +409,7 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
   const Material<T> m = load_material(scalars);
   const Voce<T> v = voce<T>(m);
   const Voce<float> vf = voce<float>(m);
+  const float f32_limit = f32_phase_limit(vf);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t step_stride = kRows * n;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -379,7 +430,7 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = next[r];
         if (t + 1 < t_steps) load(next, t + 1);
-        history_rows(x, e, m, v, vf);
+        history_rows(x, e, m, v, vf, f32_limit);
       }
     } else {
       // steps t + 1 and t + 2 in flight while step t is computed: the
@@ -393,12 +444,12 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = even[r];
         if (t + 2 < t_steps) load(even, t + 2);
-        history_rows(x, e, m, v, vf);
+        history_rows(x, e, m, v, vf, f32_limit);
         if (t + 1 < t_steps) {
 #pragma unroll
           for (int r = 0; r < 6; ++r) e[r] = odd[r];
           if (t + 3 < t_steps) load(odd, t + 3);
-          history_rows(x, e, m, v, vf);
+          history_rows(x, e, m, v, vf, f32_limit);
         }
       }
     }
@@ -435,113 +486,144 @@ __device__ __forceinline__ void store_sigma(T* __restrict__ out,
   out[8] = s[5];
 }
 
+// The staged tile loop that both AoS kernels run. Read in place, one
+// thread per point, the 56 B and 72 B rows made every warp load
+// instruction span 32 rows (32 sectors for 256 useful bytes), and the
+// time followed the access pattern, not the bytes (j2_aos_step at 46% of
+// its byte bound, j2_total_step at 37%). So each block stages a tile of
+// Tile points through shared memory: the tile's rows are contiguous slabs
+// (7 P values of xi, 9 P of each displacement gradient the form reads),
+// copied with cp.async, consecutive threads on consecutive words. Each
+// thread then reads its own rows from shared memory: strides of 7 and 9
+// words, both odd, hit distinct banks for 4 B and 8 B words. It writes
+// xi' over its xi row and sigma (all 9 entries) over its grad_u row, and
+// the block stores both slabs coalesced. Any N and any base address a
+// contiguous view can have (a slab is copied word by word, so 8 B
+// alignment is all it needs); the last tile is ragged.
+//
+// With Stages = 2 the copy of the block's next tile is in flight while
+// this one is computed and stored (two slab sets; the wait at the top of
+// a tile finds only that tile's copy outstanding). With Stages = 1 the
+// copy, compute and store of a tile follow each other, and the other
+// blocks on the SM hide the wait.
+//
+// A form says which gradient slabs come in (kGradSlabs: grad_u, then
+// grad_u_prev) and what each point computes (point(xr, g, g0, m)).
+// ---------------------------------------------------------------------------
+
+template <int Tile, typename T>
+__device__ __forceinline__ void copy_in(T* __restrict__ dst,
+                                        const T* __restrict__ src, int count) {
+  for (int i = threadIdx.x; i < count; i += Tile) cp_async(dst + i, src + i);
+}
+
+template <int Tile, typename T>
+__device__ __forceinline__ void copy_out(T* __restrict__ dst,
+                                         const T* __restrict__ src,
+                                         int count) {
+  for (int i = threadIdx.x; i < count; i += Tile) dst[i] = src[i];
+}
+
+template <typename Form, int Tile, int Stages, typename T>
+__device__ __forceinline__ void aos_tile_loop(
+    const T* __restrict__ xi, const T* __restrict__ grad_u,
+    const T* __restrict__ grad_u_prev, const Material<T>& m,
+    T* __restrict__ xi_out, T* __restrict__ sigma_out, int64_t n) {
+  static_assert(Stages == 1 || Stages == 2, "one or two slab sets");
+  constexpr int kWords = 7 + 9 * Form::kGradSlabs;  // per point
+  // per stage: xi rows (then xi' rows), grad_u rows (then sigma rows),
+  // grad_u_prev rows
+  __shared__ T slabs[Stages][kWords * Tile];
+  const int tid = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * Tile;
+  auto count_at = [n](int64_t base) {
+    return static_cast<int>(n - base < Tile ? n - base : Tile);
+  };
+  auto fetch = [&](T* s, int64_t base) {
+    const int count = count_at(base);
+    copy_in<Tile>(s, xi + 7 * base, 7 * count);
+    copy_in<Tile>(s + 7 * Tile, grad_u + 9 * base, 9 * count);
+    if constexpr (Form::kGradSlabs == 2) {
+      copy_in<Tile>(s + 16 * Tile, grad_u_prev + 9 * base, 9 * count);
+    }
+    cp_async_commit();
+  };
+  int64_t base = static_cast<int64_t>(blockIdx.x) * Tile;
+  if constexpr (Stages == 2) {
+    if (base < n) fetch(slabs[0], base);
+  }
+  for (int k = 0; base < n; ++k, base += stride) {
+    T* s = slabs[k % Stages];
+    if constexpr (Stages == 1) fetch(s, base);
+    cp_async_wait<0>();
+    // the tile has landed, and every thread has stored the last one
+    __syncthreads();
+    if constexpr (Stages == 2) {
+      if (base + stride < n) fetch(slabs[(k + 1) % 2], base + stride);
+    }
+    const int count = count_at(base);
+    if (tid < count) {
+      Form::point(s + 7 * tid, s + 7 * Tile + 9 * tid,
+                  Form::kGradSlabs == 2 ? s + 16 * Tile + 9 * tid : nullptr,
+                  m);
+    }
+    __syncthreads();
+    copy_out<Tile>(xi_out + 7 * base, s, 7 * count);
+    copy_out<Tile>(sigma_out + 9 * base, s + 7 * Tile, 9 * count);
+    // one slab set: the next tile's copies overwrite it
+    if constexpr (Stages == 1) __syncthreads();
+  }
+}
+
 // One rate-form step from AoS rows (K4, _kernel at
 // pallas_radial_return.py:40-95): the strain increment
 // sym(grad_u - grad_u_prev), the trial stress, the corrector, and the
 // stress written as the new state and as sigma. The body is radial_rows,
 // whose shear update s * (1 - scale) is _radial_rows' and the plain
 // version's; _kernel wrote s - scale * s, equal up to rounding.
-//
-// Read in place, one thread per point, the 56 B and 72 B rows made every
-// warp load instruction span 32 rows (32 sectors for 256 useful bytes),
-// and the time followed the access pattern, not the bytes (46% of the
-// byte bound). So each block stages a tile of kAosTile points through
-// shared memory: the tile's rows are contiguous slabs (7 P, 9 P and 9 P
-// values), copied with cp.async, consecutive threads on consecutive words.
-// Each thread then reads its own rows from shared memory: strides of 7
-// and 9 words, both odd, hit distinct banks for 4 B and 8 B words. It
-// writes xi' over its xi row and sigma over its grad_u row, and the block
-// stores both slabs coalesced. Any N and any base address a contiguous
-// view can have (a slab is copied word by word, so 8 B alignment is all
-// it needs); the last tile is ragged.
-// ---------------------------------------------------------------------------
+struct RateForm {
+  static constexpr int kGradSlabs = 2;
 
-constexpr int kAosTile = 128;     // points (and threads) per block
-constexpr int kAosMinBlocks = 8;  // per SM: 25 KB of shared memory each in f64
-
-template <typename T>
-__device__ __forceinline__ void copy_in(T* __restrict__ dst,
-                                        const T* __restrict__ src, int count) {
-  for (int i = threadIdx.x; i < count; i += kAosTile) cp_async(dst + i, src + i);
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_out(T* __restrict__ dst,
-                                         const T* __restrict__ src,
-                                         int count) {
-  for (int i = threadIdx.x; i < count; i += kAosTile) dst[i] = src[i];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kAosTile, kAosMinBlocks)
-j2_aos_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
-                   const T* __restrict__ grad_u_prev,
-                   const T* __restrict__ scalars, T* __restrict__ xi_out,
-                   T* __restrict__ sigma_out, int64_t n) {
-  __shared__ T sx[7 * kAosTile];   // xi rows, then xi' rows
-  __shared__ T sg[9 * kAosTile];   // grad_u rows, then sigma rows
-  __shared__ T sg0[9 * kAosTile];  // grad_u_prev rows
-  const Material<T> m = load_material(scalars);
-  const int tid = threadIdx.x;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kAosTile; base < n;
-       base += static_cast<int64_t>(gridDim.x) * kAosTile) {
-    const int count =
-        static_cast<int>(n - base < kAosTile ? n - base : kAosTile);
-    copy_in(sx, xi + 7 * base, 7 * count);
-    copy_in(sg, grad_u + 9 * base, 9 * count);
-    copy_in(sg0, grad_u_prev + 9 * base, 9 * count);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (tid < count) {
-      T* __restrict__ xr = sx + 7 * tid;
-      T* __restrict__ g = sg + 9 * tid;
-      const T* __restrict__ g0 = sg0 + 9 * tid;
-      T x[7];
+  template <typename T>
+  __device__ __forceinline__ static void point(T* __restrict__ xr,
+                                               T* __restrict__ g,
+                                               const T* __restrict__ g0,
+                                               const Material<T>& m) {
+    T x[7];
 #pragma unroll
-      for (int r = 0; r < 7; ++r) x[r] = xr[r];
-      // the order of make_j2_radial_return's increment
-      const T e[6] = {g[0] - g0[0],
-                      T(0.5) * (g[1] + g[3] - g0[1] - g0[3]),
-                      T(0.5) * (g[2] + g[6] - g0[2] - g0[6]),
-                      g[4] - g0[4],
-                      T(0.5) * (g[5] + g[7] - g0[5] - g0[7]),
-                      g[8] - g0[8]};
-      radial_rows(x, e, m);
+    for (int r = 0; r < 7; ++r) x[r] = xr[r];
+    // the order of make_j2_radial_return's increment
+    const T e[6] = {g[0] - g0[0],
+                    T(0.5) * (g[1] + g[3] - g0[1] - g0[3]),
+                    T(0.5) * (g[2] + g[6] - g0[2] - g0[6]),
+                    g[4] - g0[4],
+                    T(0.5) * (g[5] + g[7] - g0[5] - g0[7]),
+                    g[8] - g0[8]};
+    radial_rows(x, e, m);
 #pragma unroll
-      for (int r = 0; r < 7; ++r) xr[r] = x[r];
-      store_sigma(g, x);
-    }
-    __syncthreads();
-    copy_out(xi_out + 7 * base, sx, 7 * count);
-    copy_out(sigma_out + 9 * base, sg, 9 * count);
-    __syncthreads();  // the next tile's copies overwrite sx and sg
+    for (int r = 0; r < 7; ++r) xr[r] = x[r];
+    store_sigma(g, x);
   }
-}
+};
 
 // One total-form step (K5, _kernel_total at pallas_radial_return.py:
 // 624-693): state [plastic strain pe (6), alpha]; the trial stress comes
 // from the elastic strain sym(grad_u) - pe, the plastic strain moves by
 // dp = coef * dev(s_tr), and sigma = s_tr - 2 mu dp. grad_u_prev plays no
-// part (the total form is parametrized by the current strain). Each
-// thread reads its point's rows in place, one thread per point: each
-// warp load instruction touches 32 rows, and the L1 serves the other
-// values of the same rows to the following loads.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
-                     const T* __restrict__ scalars, T* __restrict__ xi_out,
-                     T* __restrict__ sigma_out, int64_t n) {
-  const Material<T> m = load_material(scalars);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    const T* __restrict__ x_in = xi + 7 * j;
-    const T* __restrict__ g = grad_u + 9 * j;
+// part (the total form is parametrized by the current strain), so it is
+// not staged: 16 words per point against the rate form's 25.
+struct TotalForm {
+  static constexpr int kGradSlabs = 1;
+
+  template <typename T>
+  __device__ __forceinline__ static void point(T* __restrict__ xr,
+                                               T* __restrict__ g,
+                                               const T* __restrict__,
+                                               const Material<T>& m) {
     T pe[6];
 #pragma unroll
-    for (int r = 0; r < 6; ++r) pe[r] = x_in[r];
-    const T alpha_prev = x_in[6];
+    for (int r = 0; r < 6; ++r) pe[r] = xr[r];
+    const T alpha_prev = xr[6];
     const T e[6] = {g[0] - pe[0],
                     T(0.5) * (g[1] + g[3]) - pe[1],
                     T(0.5) * (g[2] + g[6]) - pe[2],
@@ -558,16 +640,53 @@ j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
     const T coef = c.plastic ? T(1.5) * c.dg / c.safe_phi : T(0);
     // deviator of the trial stress in sym-vec order
     const T dev[6] = {c.d0, s[1], s[2], c.d3, s[4], c.d5};
-
-    T* __restrict__ x_out = xi_out + 7 * j;
 #pragma unroll
-    for (int r = 0; r < 6; ++r) x_out[r] = pe[r] + coef * dev[r];
-    x_out[6] = alpha_prev + c.dg;
+    for (int r = 0; r < 6; ++r) xr[r] = pe[r] + coef * dev[r];
+    xr[6] = alpha_prev + c.dg;
     T sig[6];
 #pragma unroll
     for (int r = 0; r < 6; ++r) sig[r] = s[r] - two_mu * coef * dev[r];
-    store_sigma(sigma_out + 9 * j, sig);
+    store_sigma(g, sig);
   }
+};
+
+// j2_aos_step: 25 words per point, 25.6 KB of shared memory per block in
+// f64; 8 blocks per SM hide the load (83% of the byte bound).
+constexpr int kAosTile = 128;     // points (and threads) per block
+constexpr int kAosMinBlocks = 8;  // per SM: caps registers at 64
+
+// j2_total_step: 16 words per point, so two slab sets of a 128-point tile
+// (32 KB in f64) fit in less shared memory than j2_aos_step's one. In f64
+// two stages, and no register cap below what the Newton takes (about 100
+// registers, 4 blocks per SM): 9-10% faster than one stage at 8 blocks,
+// whose cap at 64 registers spilled (a cap at 80 reloaded the material
+// inside the Newton). In f32 (56 registers) one stage at 8 blocks or more
+// was 4-5% faster than two (PERF.md).
+constexpr int kTotalTile = 128;
+template <typename T>
+constexpr int kTotalStages = sizeof(T) == 8 ? 2 : 1;
+template <typename T>
+constexpr int kTotalMinBlocks = sizeof(T) == 8 ? 4 : 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kAosTile, kAosMinBlocks)
+j2_aos_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
+                   const T* __restrict__ grad_u_prev,
+                   const T* __restrict__ scalars, T* __restrict__ xi_out,
+                   T* __restrict__ sigma_out, int64_t n) {
+  aos_tile_loop<RateForm, kAosTile, 1>(xi, grad_u, grad_u_prev,
+                                       load_material(scalars), xi_out,
+                                       sigma_out, n);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTotalTile, kTotalMinBlocks<T>)
+j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
+                     const T* __restrict__ scalars, T* __restrict__ xi_out,
+                     T* __restrict__ sigma_out, int64_t n) {
+  aos_tile_loop<TotalForm, kTotalTile, kTotalStages<T>>(
+      xi, grad_u, static_cast<const T*>(nullptr), load_material(scalars),
+      xi_out, sigma_out, n);
 }
 
 // Enough blocks of `threads` to fill every SM at the kernel's occupancy,
@@ -648,9 +767,11 @@ template <typename T>
 int launch_total(const void* xi, const void* grad_u, const void* scalars,
                  void* xi_out, void* sigma_out, long long n, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_total_step_kernel<T>, kThreads,
-                            (n + kThreads - 1) / kThreads);
-  j2_total_step_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  prefer_shared(j2_total_step_kernel<T>);
+  const int grid = balanced_grid(j2_total_step_kernel<T>, kTotalTile,
+                                 (n + kTotalTile - 1) / kTotalTile);
+  j2_total_step_kernel<T>
+      <<<grid, kTotalTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(grad_u),
       static_cast<const T*>(scalars), static_cast<T*>(xi_out),
       static_cast<T*>(sigma_out), n);

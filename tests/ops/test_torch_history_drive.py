@@ -123,26 +123,51 @@ def jax_scan_drive(case):
     return jax_drive(p, fused=False)
 
 
-@pytest.mark.parametrize("n", [1, 33])
-@pytest.mark.parametrize("t_steps", [0, 1, 2])
-def test_plain_drive_edges_match_jax_scan(case, jax_scan_drive, n, t_steps):
+def _scaled(values, k):
+    """A values tree with E, Y and S times ``k``: mu, lam and every stress
+    of a history scale by ``k``, alpha and dg stay as they are."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: a * k if path[-1].key in ("E", "Y", "S") else a,
+        values)
+
+
+# (t_steps, n, scale): the shortest histories and smallest batches that
+# the kernel's edge cases exercise on the card, and one on a material
+# scaled by 1e37, whose trial stresses (about 1e39) are beyond f32's range
+_EDGES = [(t, n, 1.0) for t in (0, 1, 2) for n in (1, 33)] + [(2, 33, 1e37)]
+
+
+@pytest.mark.parametrize(
+    "t_steps, n, scale", _EDGES,
+    ids=[f"{t}-{n}" + ("" if k == 1.0 else f"-scaled{k:g}")
+         for t, n, k in _EDGES])
+def test_plain_drive_edges_match_jax_scan(case, jax_scan_drive, n, t_steps,
+                                          scale):
     """The plain history drive at the shortest histories and smallest
     batches that the kernel's edge cases exercise on the card: T = 0
-    returns the initial state, as the JAX scan does."""
+    returns the initial state, as the JAX scan does. On the material
+    scaled by 1e37 (stresses too) some points yield, and the drive
+    matches the JAX scan at the same per-row tolerance."""
     p, tp, _xi0, _de = case
     rng = np.random.default_rng(100 + 10 * n + t_steps)
     xi0 = np.zeros((8, n))
-    xi0[:6] = rng.normal(0.0, 30.0, size=(6, n))
+    xi0[:6] = scale * rng.normal(0.0, 30.0, size=(6, n))
     xi0[6] = np.abs(rng.normal(0.0, 0.005, size=n))
     de = np.zeros((t_steps, 8, n))
     de[:, :6] = rng.normal(0.0, 0.4e-3, size=(t_steps, 6, n))
-    ref = jax_scan_drive(jnp.asarray(xi0), jnp.asarray(de), p.values)
+    values = p.values if scale == 1.0 else _scaled(p.values, scale)
+    tvalues = tp.values if scale == 1.0 else parameters_from_numpy(
+        jax.tree.map(np.asarray, values), dtype=F64, device="cpu").values
+    ref = jax_scan_drive(jnp.asarray(xi0), jnp.asarray(de), values)
     out = make_j2_history_drive(tp)(torch.tensor(xi0), torch.tensor(de),
-                                    tp.values)
+                                    tvalues)
     assert out.shape == (8, n)
     assert_rows_close(out, ref)
     if t_steps == 0:
         np.testing.assert_array_equal(out.numpy(), xi0)
+    if scale != 1.0:
+        assert float(np.abs(ref[:6]).max()) > 3.4e38
+        assert bool((out[6] > torch.tensor(xi0[6])).any())
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -13,11 +13,15 @@ library. For each library the probe prints
   at 2,097,152 points x 64 steps in three regimes (headline: every point
   plastic; mixed: the increment x 0.045 x 8 / 64, about 57% plastic;
   elastic: the increment x 1e-3, no point yields) and the three step
-  kernels at 4,194,304 points, f64 and f32.
+  kernels at 4,194,304 points, f64 and f32;
+- ``j2_soa_history`` in f64 on the two materials outside the range of its
+  f32 Newton phase (``chip_smoke.range_scalars``), against the plain
+  loop of steps and the yield condition (not timed).
 
 The libraries are timed in turns inside one process (A B B A ...), on the
 same inputs, best of ``--rounds`` rounds of ``--reps`` launches, with
-CUDA events; each library's output is compared with the first's. Run
+CUDA events; each library's output is compared with the first's, and
+the cases where it is not bit-identical are listed at the end. Run
 from the root of a checkout:
 
     python3 tools/torch_kernel_probe.py --src change=cmad_tpu_torch/csrc
@@ -45,7 +49,15 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+from chip_smoke import (  # noqa: E402
+    N_HIST as N_RANGE,
+    T_RANGE,
+    range_scalars,
+    row_error,
+    yield_residual,
+)
 from cmad_tpu_torch.ops import _build, _sass  # noqa: E402
+from cmad_tpu_torch.ops.j2_radial_return import soa_step_scalars  # noqa: E402
 
 N_HIST, T_HIST = 2_097_152, 64
 N_STEP = 4_194_304
@@ -87,7 +99,7 @@ def sass_counts(insns) -> dict:
 
 # the block size of each kernel: the constant of the source it launches with
 _BLOCK_CONST = {"j2_soa_step": "kThreads",
-                "j2_total_step": "kThreads",
+                "j2_total_step": "kTotalTile",
                 "j2_soa_history": "kHistThreads",
                 "j2_aos_step": "kAosTile"}
 
@@ -311,6 +323,8 @@ def main() -> int:
                           "bound_ms": max(t_bytes, t_ops),
                           "share": max(t_bytes, t_ops) / best[nm]}
         row = {"case": case, "ms": best, "max_abs_diff_to_first": diff,
+               "bit_identical_to_first": {nm: d == 0.0
+                                          for nm, d in diff.items()},
                "updates": updates, "plastic_updates": plastic,
                "bounds": bounds,
                "sm_mhz_min_max": [min((c for c, _ in samples), default=None),
@@ -401,6 +415,43 @@ def main() -> int:
         del g, z, x0
         torch.cuda.empty_cache()
 
+    # the f64 history outside the range of its f32 Newton phase
+    if re.search(args.cases, "j2_soa_history f64 range"):
+        dt = torch.float64
+        sc = torch.tensor(SCALARS, device=dev, dtype=dt)
+        hist = torch.zeros((T_RANGE, 8, N_RANGE), device=dev, dtype=dt)
+        hist[:, :6] = 1.5e-3 * torch.randn((T_RANGE, 6, N_RANGE),
+                                           generator=gen, device=dev,
+                                           dtype=dt)
+        xi0 = torch.zeros((8, N_RANGE), device=dev, dtype=dt)
+        for label, sc_r in range_scalars(sc).items():
+            ref = xi0
+            for t in range(T_RANGE):
+                before, ref = ref, soa_step_scalars(ref, hist[t], sc_r)
+            plastic = ref[6] > before[6]
+            row = {"case": f"j2_soa_history f64 range {label} "
+                           f"{N_RANGE}x{T_RANGE}",
+                   "points_yielding_in_last_step": int(plastic.sum()),
+                   "max_row_scaled_err_to_plain": {},
+                   "max_yield_residual_over_Y": {}}
+            for nm, lib in libs.items():
+                o = torch.empty_like(xi0)
+                check(lib.j2_soa_history_f64(
+                    xi0.data_ptr(), hist.data_ptr(), sc_r.data_ptr(),
+                    o.data_ptr(), N_RANGE, T_RANGE, stream))
+                torch.cuda.synchronize()
+                row["max_row_scaled_err_to_plain"][nm] = row_error(o, ref)[1]
+                row["max_yield_residual_over_Y"][nm] = yield_residual(
+                    o, plastic, sc_r)
+            print(json.dumps(row), flush=True)
+            report.setdefault("range", []).append(row)
+        del hist, xi0
+
+    differ = [row["case"] for row in report.get("times", [])
+              if not all(row["bit_identical_to_first"].values())]
+    print(f"outputs bit-identical to {next(iter(libs))}'s: "
+          f"{'every timed case' if not differ else 'all but ' + str(differ)}",
+          flush=True)
     (out / "probe.json").write_text(json.dumps(report, indent=1))
     print(card, flush=True)
     return 1 if failed else 0
