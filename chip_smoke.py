@@ -22,7 +22,20 @@ the built library's SASS counts them). The paths driven:
   total form (``j2_total_step``);
 - the generic implicit-function Newton, ``make_batched_return_map(model)``,
   at 1,048,576 points x 2 steps, and its gradient against autograd
-  through the plain radial return.
+  through the plain radial return;
+- the FE J2 primal on the notch (``examples/notch_hosford.yaml`` with J2,
+  the stepped driver, CG with the two-level preconditioner), built from
+  the deck as a dict by ``cli/fe_common.build_fe_problem_from_deck`` and
+  driven by ``run_primal_fe``, 4 steps, f64: on 480 tets at a fixed CG
+  rtol of 1e-10 against the same drive on the CPU (plain step,
+  sparse-direct solves); on 47,628 tets with the linear solver of the
+  deck's at-scale records (rtol 1e-6, at most 2000 iterations, the
+  Eisenstat-Walker forcing term) against cmad_tpu's ||U|| and max |alpha|
+  after each step; on 153,600 tets, the same solver, timed only. Each
+  counts its ``j2_soa_step`` launches against the assemblies its Newton
+  and line searches made, and the last two time an assembly, K1 at the
+  FE shape (on the device, from a CUDA graph), the two-level setup and
+  one CG solve.
 
 It prints one line per phase (each with its wall seconds), the card's
 name and power limit, a JSON line with one entry per kernel, then the
@@ -113,6 +126,90 @@ GRAD_TRANSFORMS = {
 
 SOURCE = "cmad_tpu_torch/csrc/j2_radial_return.cu"
 PALLAS = "cmad_tpu/ops/pallas_radial_return.py"
+
+# the FE J2 primal on the notch: examples/notch_hosford.yaml with the J2
+# effective stress, the stepped driver and the linear solver of every
+# at-scale record of this deck (benchmarks/notch_hosford/
+# calibrate_scale.py:86-106, measure_scale.py:63-66, hessian_scale.py:
+# 67-70), as a dict (the deck path needs PyYAML, which the GPU host lacks)
+MESHES = Path(__file__).resolve().parent / "examples" / "meshes"
+FE_SMALL_MESH = "notch_h0.080.exo"   # 480 tets, 495 dofs
+FE_MESH = "notch_h0.015.exo"         # 47,628 tets, 29,040 dofs
+FE_LARGE_MESH = "notch_h0.010.exo"   # 153,600 tets, 88,209 dofs
+# the deck's cap of 15 Newton iterations leaves step 1 of the 47,628-tet
+# notch at ||R|| = 2.99e-3 in cmad_tpu (f64, sparse-direct solves); with
+# 50 every step converges in both packages (the port: in at most 20)
+FE_MAX_ITERS = 50
+# the records' linear solver: CG with the two-level preconditioner, rtol
+# 1e-6, at most 2000 iterations, and the Eisenstat-Walker forcing term
+# (each solve's rtol follows the Newton's contraction, down to 1e-6)
+FE_RECORDS = {"type": "cg", "rtol": 1.0e-6, "max iters": 2000,
+              "adaptive rtol": True, "preconditioner": {"type": "two_level"}}
+# fe-notch-small's solver: the same CG at a fixed rtol 1e-10, 10 n at most
+FE_CG_TIGHT = {"type": "cg", "rtol": 1e-10, "max iters": None,
+               "preconditioner": {"type": "two_level"}}
+FE_DIRECT = {"type": "direct"}
+# cmad_tpu on the CPU in f64 with sparse-direct solves, the same deck:
+# ||U|| and max |alpha| after each of the 4 steps
+# (tools/fe_notch_reference.py --mesh notch_h0.015.exo --max-iters 50,
+# jax 0.9.0)
+FE_REF_U_NORMS = (0.7609226673826566, 1.5289882558798078,
+                  2.158390610204209, 2.7566431903009647)
+FE_REF_ALPHA_MAX = (0.07123925805427708, 0.12625392664911547,
+                    0.1632297793524226, 0.19545436581399595)
+FE_REF_RTOL = 1e-6
+# 480 tets: the card (K1, two-level CG) against the CPU (plain step,
+# sparse-direct solves), max|U_gpu - U_cpu| / max|U_cpu| over the steps.
+# Both Newtons stop at the deck's 1e-8 relative residual, on their own
+# paths, so their answers differ by about that much over K's conditioning
+# (2.4e-7 on an H100)
+FE_SMALL_BOUND = 1e-5
+# K1 reads 7 rows of xi and 6 of de and writes 8 rows of xi': 21 x 8 B
+BYTES_PER_K1_POINT = 168
+GRAPH_REPS = 20     # K1 launches per CUDA graph, timed on the device
+
+
+def notch_deck(mesh: str, solver: dict) -> dict:
+    """The notch deck with J2 on ``mesh`` (a file of examples/meshes)."""
+    return {
+        "problem": {"type": "fe", "name": "notch_hosford"},
+        "discretization": {"mesh file": str(MESHES / mesh),
+                           "build coordinate sidesets": True,
+                           "num steps": 4, "step size": 1.0},
+        "residuals": {
+            "global residual": {
+                "type": "small_disp_equilibrium", "def_type": "full_3d",
+                "driver": "stepped", "nonlinear max iters": FE_MAX_ITERS,
+                "nonlinear absolute tol": 1.0e-8,
+                "nonlinear relative tol": 1.0e-8},
+            "local residual": {
+                "type": "small_elastic_plastic",
+                "nonlinear max iters": 500,
+                "nonlinear absolute tol": 1.0e-12,
+                "nonlinear relative tol": 1.0e-12,
+                "line search": {"max evals": 100},
+                "materials": {"block_1": {
+                    "elastic": {"E": 1000.0, "nu": 0.25},
+                    "plastic": {
+                        "effective stress": {"J2": {}},
+                        "flow stress": {
+                            "initial yield": {"Y": 2.0},
+                            "hardening": {"voce": {"S": 10.0,
+                                                   "D": 2.0}}}}}}}},
+        "dirichlet bcs": {"expression": {
+            "sym_x": ["equilibrium", 0, "xmin_sides", "0.0"],
+            "sym_y": ["equilibrium", 1, "ymin_sides", "0.0"],
+            "sym_z": ["equilibrium", 2, "zmin_sides", "0.0"],
+            "load_y": ["equilibrium", 1, "ymax_sides", "0.01 * t"]}},
+        "linear solver": dict(solver),
+    }
+
+
+def fe_converged(log, nls) -> bool:
+    """Every step of the solver log met the Newton's stopping rule."""
+    return all(e["final_residual"] < nls["abs tol"]
+               or e["final_residual"] < nls["rel tol"] * e["initial_residual"]
+               for e in log)
 
 
 def say(phase: str, msg: str) -> None:
@@ -231,6 +328,37 @@ def best_ms(fn, x0, sync) -> float:
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end) / REPS)
+    return best
+
+
+def graph_ms(fn, sync) -> float:
+    """Device ms per call of ``fn()``: GRAPH_REPS calls captured in one
+    CUDA graph and replayed, best of ROUNDS replays after a warm-up, so
+    that the launches run back to back without the host's dispatch."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_REPS):
+            fn()
+    graph.replay()
+    sync()
+    best = math.inf
+    for _ in range(ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / GRAPH_REPS)
+    del graph
     return best
 
 
@@ -907,29 +1035,292 @@ def main() -> int:
     sync()
     lap("mp-gradient")
 
-    # ---------------- 12. launches ----------------
-    main_path = {"j2_soa_step": launches["j2_soa_step"],
+    # ---------------- 12-14. the FE J2 primal on the notch ----------------
+    from cmad_tpu_torch.cli.fe_common import (
+        build_fe_problem_from_deck,
+        nonlinear_settings,
+        run_primal_fe,
+    )
+    from cmad_tpu_torch.fem.assembly import (
+        assemble_global,
+        gather_element_U,
+        params_by_block_from_models,
+    )
+    from cmad_tpu_torch.fem.j2_block import soa_step_inputs
+    from cmad_tpu_torch.fem.nonlinear_solver import (
+        get_two_level_pattern,
+        solve_linear,
+    )
+    from cmad_tpu_torch.fem.sparse_solve import (
+        _csr_operator,
+        _embedded_bc_enforce,
+        _embedded_residual,
+    )
+    from cmad_tpu_torch.fem.two_level import make_two_level_preconditioner
+    from cmad_tpu_torch.fem.xi_carrier import pack_xi_by_block
+
+    def fe_drive(phase, bundle):
+        """The deck's primal from its bundle with K1's launches counted
+        from 0: (state, log, per-step stats, launches, peak bytes)."""
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_rr.reset_launch_counts()
+        stats: list = []
+        state, log = run_primal_fe(bundle, stats)
+        sync()
+        k1 = cuda_rr.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        implied = sum(s["assemblies"] for s in stats)
+        say(phase, f"j2_soa_step launches {k1['j2_soa_step']}; assemblies "
+                   f"implied by the Newton and line-search iterations "
+                   f"(each Newton start, each probe, each step's residual "
+                   f"pair) {implied}; other kernels {k1}")
+        if k1["j2_soa_step"] != implied or implied < len(stats):
+            raise RuntimeError(f"{phase}: K1 launches {k1} != assemblies "
+                               f"{implied}")
+        nls = nonlinear_settings(bundle)
+        for k, (s, e) in enumerate(zip(stats, log, strict=True), start=1):
+            cg = s.get("cg_iters", [])
+            say(phase, f"step {k}: wall {s['wall_s']:.3f} s, "
+                       f"{s['newton_iters']} Newton iterations, "
+                       f"{s['assemblies']} assemblies, CG iterations per "
+                       f"solve {cg} (mean {np.mean(cg) if cg else 0:.1f}); "
+                       f"||R|| {e['initial_residual']:.6e} -> "
+                       f"{e['final_residual']:.3e}")
+        if not fe_converged(log, nls):
+            raise RuntimeError(f"{phase}: a step missed the deck's "
+                               f"tolerance: {log}")
+        U = np.stack(state.U_history)
+        if not np.isfinite(U).all():
+            raise RuntimeError(f"{phase}: non-finite U")
+        return state, log, stats, k1["j2_soa_step"], peak
+
+    def ms_of(fn) -> float:
+        """Best of ROUNDS rounds of REPS calls of ``fn()``, ms per call."""
+        return best_ms(lambda _x: fn(), None, sync)
+
+    def fe_unit_times(phase, bundle, state, stats):
+        """Times of the step's parts at the last step of the drive: one
+        assembly with its embedded-BC pair, K1 alone and its plain version
+        (with their parity; device times from a CUDA graph, and K1's
+        wrapper timed from the host), the two-level setup and one
+        two-level CG solve of the step's first Newton system at the
+        solver's rtol floor."""
+        fe = bundle.fe_problem
+        ka = fe.kernel_arrays
+        dtp = fe.dtype
+        params = params_by_block_from_models(fe)
+        k = len(state.U_history) - 1
+        t = float(state.t_history[k])
+        U_prev = torch.as_tensor(state.U_at(k - 1), dtype=dtp, device=dev)
+        U = torch.as_tensor(state.U_at(k), dtype=dtp, device=dev)
+        xi_prev = pack_xi_by_block(
+            fe, {"block_1": torch.as_tensor(state.xi_at(k - 1, "block_1"),
+                                            dtype=dtp, device=dev)})
+        presc = ka.prescribed_indices
+        pv = torch.as_tensor(fe.dof_map.evaluate_prescribed_values(
+            ka.dbc_arrays, t), dtype=dtp, device=dev)
+
+        def assemble(Ux):
+            K, R, xi = assemble_global(fe, ka, params, Ux, U_prev, t,
+                                       xi_prev_by_block=xi_prev)
+            K_data, K_ii = _embedded_bc_enforce(K, presc)
+            return _embedded_residual(R, K, Ux, presc, pv, K_ii), K_data, xi
+
+        with torch.no_grad():
+            asm_ms = ms_of(lambda: assemble(U))
+            # K1 at the main path's shape, on the step's own inputs
+            gradN = ka.geometry_cache["block_1"]["per_elem"]["grad_N_phys"][0]
+            xs, ds, sc = soa_step_inputs(
+                "total", params["block_1"],
+                gather_element_U(U, ka, "block_1")[0],
+                gather_element_U(U_prev, ka, "block_1")[0], gradN,
+                xi_prev["block_1"])
+            out = cuda_rr.soa_step_scalars_cuda(xs, ds, sc)
+            k1_err = check_rows(phase, f"j2_soa_step on the last step's "
+                                f"inputs, N={xs.shape[1]}", out,
+                                soa_step_scalars(xs, ds, sc),
+                                STEP_BOUND["float64"])
+            k1_plastic = int((out[6] > xs[6]).sum())
+            k1_ms = graph_ms(
+                lambda: cuda_rr.soa_step_scalars_cuda(xs, ds, sc), sync)
+            k1_plain = graph_ms(lambda: soa_step_scalars(xs, ds, sc), sync)
+            k1_host = ms_of(
+                lambda: cuda_rr.soa_step_scalars_cuda(xs, ds, sc))
+            # the step's first Newton system
+            r0, K0, _ = assemble(U_prev)
+            lss = bundle.resolved["linear solver"]
+            sp = fe.embedded_sparsity
+            pattern = get_two_level_pattern(fe)
+
+            def setup():
+                unique = _csr_operator(K0, sp)[0]
+                return make_two_level_preconditioner(
+                    pattern, unique, sp.rows, sp.col_indices,
+                    unique[sp.diag_idx])
+
+            setup_ms = ms_of(setup)
+            floor = {**lss, "adaptive rtol": False}
+            solve_stats: dict = {}
+            solve_linear(K0, fe, ka, -r0, floor, stats=solve_stats)
+            iters = solve_stats["cg_iters"][0]
+            solve_ms = ms_of(lambda: solve_linear(K0, fe, ka, -r0, floor))
+        n = xs.shape[1]
+        b_ms, by, t_bytes, t_ops = bound_ms(
+            BYTES_PER_K1_POINT * n, ops["j2_soa_step<double>"], n, k1_plastic)
+        per_iter = (solve_ms - setup_ms) / max(iters, 1)
+        say(phase, f"one assembly (the J2 block with K1, the COO dedup, the "
+                   f"embedded-BC pair) {asm_ms:.4f} ms; j2_soa_step "
+                   f"N={n} ({k1_plastic} plastic): device {k1_ms:.4f} ms "
+                   f"per launch ({GRAPH_REPS} launches in a CUDA graph), "
+                   f"plain device {k1_plain:.4f} ms (the same), through "
+                   f"the wrapper from the host {k1_host:.4f} ms (host "
+                   f"dispatch included); bound {b_ms:.4f} ms ({by}; bytes "
+                   f"{t_bytes:.4f} ms at {BYTES_PER_K1_POINT} B per point, "
+                   f"operations {t_ops:.4f} ms) = {b_ms / k1_ms:.1%} of "
+                   f"the device time")
+        say(phase, f"one linear solve (cg + two_level, rtol "
+                   f"{floor['rtol']:g}, max iters {floor['max iters']}) of "
+                   f"the step's first Newton system: "
+                   f"{solve_ms:.3f} ms for {iters} CG iterations; two-level "
+                   f"setup {setup_ms:.3f} ms (coarse dim "
+                   f"{pattern.coarse_dim}), {per_iter:.4f} ms per CG "
+                   f"iteration")
+        n_asm = sum(s["assemblies"] for s in stats)
+        n_solves = sum(len(s.get("cg_iters", [])) for s in stats)
+        n_cg = sum(sum(s.get("cg_iters", [])) for s in stats)
+        wall = sum(s["wall_s"] for s in stats)
+        est_asm = n_asm * asm_ms * 1e-3
+        est_k1 = n_asm * k1_host * 1e-3
+        est_solve = (n_solves * setup_ms + n_cg * per_iter) * 1e-3
+        say(phase, f"where the drive's {wall:.3f} s go (counts x the unit "
+                   f"times above): {n_asm} assemblies {est_asm:.3f} s "
+                   f"(of which K1's wrapper {est_k1:.4f} s), {n_solves} "
+                   f"linear solves "
+                   f"with {n_cg} CG iterations {est_solve:.3f} s ("
+                   f"{est_solve / max(n_solves, 1) * 1e3:.2f} ms per solve), "
+                   f"the rest "
+                   f"(line-search bookkeeping, host) "
+                   f"{wall - est_asm - est_solve:.3f} s")
+        return {"k1_ms": k1_ms, "k1_plain": k1_plain, "k1_err": k1_err,
+                "k1_host": k1_host,
+                "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n}
+
+    # ---------------- 12. fe-notch-small ----------------
+    bundle = build_fe_problem_from_deck(notch_deck(FE_SMALL_MESH,
+                                                   FE_CG_TIGHT))
+    if bundle.fe_problem.device.type != "cuda":
+        raise RuntimeError("fe-notch-small: the entry point left the card")
+    gpu_state, _log, _stats, _k1, _peak = fe_drive("fe-notch-small", bundle)
+    cpu_bundle = build_fe_problem_from_deck(
+        notch_deck(FE_SMALL_MESH, FE_DIRECT), device="cpu")
+    cpu_state, cpu_log = run_primal_fe(cpu_bundle)
+    if not fe_converged(cpu_log, nonlinear_settings(cpu_bundle)):
+        raise RuntimeError("fe-notch-small: the CPU drive did not converge")
+    U_gpu, U_cpu = np.stack(gpu_state.U_history), np.stack(cpu_state.U_history)
+    small_rel = float(np.abs(U_gpu - U_cpu).max() / np.abs(U_cpu).max())
+    say("fe-notch-small", f"480 tets x 4 steps, card (j2_soa_step, cg + "
+                          f"two_level) vs CPU (plain step, direct): "
+                          f"max|U_gpu - U_cpu| / max|U_cpu| {small_rel:.3e} "
+                          f"(bound {FE_SMALL_BOUND:g}); ||U|| per step "
+                          f"{[float(f'{np.linalg.norm(u):.10f}') for u in gpu_state.U_history[1:]]}")
+    if not small_rel <= FE_SMALL_BOUND:
+        raise RuntimeError("fe-notch-small: card and CPU disagree")
+    del bundle, cpu_bundle, gpu_state, cpu_state
+    lap("fe-notch-small")
+
+    # ---------------- 13. fe-notch (main path) ----------------
+    t0 = time.perf_counter()
+    bundle = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS))
+    fe = bundle.fe_problem
+    say("fe-notch", f"{FE_MESH}: {fe.mesh.connectivity.shape[0]} tets, "
+                    f"{fe.mesh.nodes.shape[0]} nodes, "
+                    f"{fe.dof_map.num_total_dofs} dofs; problem built in "
+                    f"{time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    state, log, stats, fe_launches, peak = fe_drive("fe-notch", bundle)
+    drive_s = time.perf_counter() - t0
+    norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
+    alphas = [float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
+              for k in range(1, len(state.U_history))]
+    worst = max(max(abs(a - b) / b for a, b in zip(norms, FE_REF_U_NORMS,
+                                                    strict=True)),
+                max(abs(a - b) / b for a, b in zip(alphas, FE_REF_ALPHA_MAX,
+                                                    strict=True)))
+    say("fe-notch", f"4 steps in {drive_s:.3f} s ({drive_s / 4:.3f} s per "
+                    f"step), peak memory {peak / 2**30:.3f} GiB; ||U|| per "
+                    f"step {norms}, max |alpha| {alphas}; against cmad_tpu "
+                    f"(CPU f64, direct) {list(FE_REF_U_NORMS)}: max rel "
+                    f"err {worst:.3e} (bound {FE_REF_RTOL:g})")
+    if not worst <= FE_REF_RTOL:
+        raise RuntimeError("fe-notch: the drive misses cmad_tpu's answer")
+    fe_k1 = fe_unit_times("fe-notch", bundle, state, stats)
+    say("fe-notch", f"j2_soa_step launches per step "
+                    f"{[s['assemblies'] for s in stats]} at N = "
+                    f"{fe_k1['n']}")
+    del bundle, fe, state
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-notch")
+
+    # ---------------- 14. fe-notch-large ----------------
+    t0 = time.perf_counter()
+    bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
+                                                   FE_RECORDS))
+    fe = bundle.fe_problem
+    say("fe-notch-large", f"{FE_LARGE_MESH}: "
+                          f"{fe.mesh.connectivity.shape[0]} tets, "
+                          f"{fe.dof_map.num_total_dofs} dofs; problem built "
+                          f"in {time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    state, log, stats, _k1, peak = fe_drive("fe-notch-large", bundle)
+    drive_s = time.perf_counter() - t0
+    norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
+    say("fe-notch-large", f"4 steps in {drive_s:.3f} s ({drive_s / 4:.3f} "
+                          f"s per step), peak memory {peak / 2**30:.3f} GiB; "
+                          f"||U|| per step {norms}")
+    if not all(b > a for a, b in zip([0.0] + norms, norms)):
+        raise RuntimeError("fe-notch-large: ||U|| does not grow with the "
+                           "load")
+    fe_unit_times("fe-notch-large", bundle, state, stats)
+    del bundle, fe, state
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-notch-large")
+
+    # ---------------- 15. launches ----------------
+    main_path = {"j2_soa_step": fe_launches,
                  "j2_soa_history": launches["j2_soa_history"],
                  "j2_aos_step": mp_launches["j2_aos_step"],
                  "j2_total_step": mp_launches["j2_total_step"]}
-    say("launches", f"main paths (history-drive + fe-dispatch; mp-batched): "
-                    f"{main_path}")
+    say("launches", f"main paths (fe-notch; history-drive; mp-batched): "
+                    f"{main_path}; fe-dispatch launched j2_soa_step "
+                    f"{launches['j2_soa_step']} times")
     if not all(v > 0 for v in main_path.values()):
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
 
     # bounds from this run's shapes and data (f64): bytes each input read
     # once and each output written once; operations from the SASS counts
-    # and the plastic updates this run's data produced
+    # and the plastic updates this run's data produced. j2_soa_step is
+    # reported at the FE notch's shape, the fe-dispatch shape in a line
     step_ms, step_plain = timings[("step", "float64")]
+    b_ms, by, t_bytes, t_ops = bound_ms(
+        BYTES_PER_K1_POINT * N_FE, ops["j2_soa_step<double>"], N_FE,
+        step_plastic)
+    say("launches", f"j2_soa_step at the fe-dispatch shape N={N_FE}: "
+                    f"bound {b_ms:.4f} ms ({by}; bytes {t_bytes:.4f} ms, "
+                    f"operations {t_ops:.4f} ms); kernel {step_ms:.4f} ms "
+                    f"= {b_ms / step_ms:.1%} of the bound, plain "
+                    f"{step_plain:.4f} ms, max abs err {results['step_err']:.3e}")
     drive_ms, drive_plain = timings[("drive", "float64", "headline")]
     bounds = {
-        "j2_soa_step": bound_ms(168 * N_FE, ops["j2_soa_step<double>"],
-                                N_FE, step_plastic),
+        "j2_soa_step": fe_k1["k1_bound"],
         "j2_soa_history": bound_ms(
             (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double>"],
             N_DRIVE * T_DRIVE, sum(hist_plastic)),
     }
-    rows = [("j2_soa_step", 173, results["step_err"], step_ms, step_plain),
+    rows = [("j2_soa_step", 173, fe_k1["k1_err"], fe_k1["k1_ms"],
+             fe_k1["k1_plain"]),
             ("j2_soa_history", 464, results["hist_err"], drive_ms,
              drive_plain)]
     for form, kname, line, nbytes in (("rate", "j2_aos_step", 40, 328),

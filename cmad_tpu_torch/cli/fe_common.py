@@ -1,0 +1,290 @@
+"""FE deck builder and the FE primal drive.
+
+Port of the FE primal part of ``cmad_tpu/cli/fe_common.py`` (parity:
+reference ``cmad/cli/common.py:149-785``, FE half): deck -> mesh -> GR
+-> per-block models -> Dirichlet BCs -> GlobalDofMap -> FEProblem + time
+schedule, on the card unless the caller asks for the CPU.
+
+:func:`build_fe_problem_from_deck` takes a deck path or an
+already-loaded deck dict. A dict needs neither PyYAML nor jsonschema; a
+path needs PyYAML (imported when the deck is read). JSON-Schema
+validation, the ``cmad primal`` command and its writers, QoIs and load
+cases come with ROADMAP queue 1, items 16 and 18.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from cmad_tpu_torch import config
+from cmad_tpu_torch.fem.bcs import DirichletBC
+from cmad_tpu_torch.fem.dof import GlobalFieldLayout, build_dof_map
+from cmad_tpu_torch.fem.elements import P1_TET, Q1_HEX, FiniteElement
+from cmad_tpu_torch.fem.fe_problem import (
+    FEProblem,
+    FEState,
+    build_fe_problem,
+)
+from cmad_tpu_torch.fem.mesh import coordinate_side_sets
+from cmad_tpu_torch.fem.quadrature import hex_quadrature, tet_quadrature
+from cmad_tpu_torch.fem.topology import ElementFamily
+from cmad_tpu_torch.global_residuals.global_residual import GlobalResidual
+from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
+from cmad_tpu_torch.io.deck import apply_deck_defaults, load_deck
+from cmad_tpu_torch.io.expressions import parse_scalar_expression
+from cmad_tpu_torch.io.mesh_io import read_mesh_file
+from cmad_tpu_torch.io.params_builder import build_parameters
+from cmad_tpu_torch.io.registry import resolve_global_residual, resolve_model
+from cmad_tpu_torch.models.deformation_types import DefType
+from cmad_tpu_torch.models.model import Model
+
+_DEFAULT_FE = {ElementFamily.HEX_LINEAR: Q1_HEX,
+               ElementFamily.TET_LINEAR: P1_TET}
+_FE_BY_NAME = {"Q1": Q1_HEX, "Q1_HEX": Q1_HEX,
+               "P1": P1_TET, "P1_TET": P1_TET}
+_COORD_NAMES = ("x", "y", "z", "t")
+_VOLUME_RULES = {ElementFamily.HEX_LINEAR: hex_quadrature,
+                 ElementFamily.TET_LINEAR: tet_quadrature}
+
+
+@dataclass(frozen=True)
+class FEProblemBundle:
+    resolved: dict[str, Any]
+    fe_problem: FEProblem
+    t_schedule: np.ndarray
+
+
+def build_fe_problem_from_deck(
+        deck: Path | str | dict[str, Any], *,
+        dtype: torch.dtype = config.DEFAULT_DTYPE,
+        device: torch.device | str = config.DEFAULT_DEVICE
+) -> FEProblemBundle:
+    """The FE problem of a primal deck (a path, or the deck as a dict),
+    on ``device`` in ``dtype``; the default device is the card, and
+    without one this raises."""
+    device = config.checked_device(device)
+    if isinstance(deck, dict):
+        resolved = apply_deck_defaults(deck)
+    else:
+        resolved = apply_deck_defaults(load_deck(Path(deck)))
+    for section, item in (("qoi", "16"), ("load cases", "18"),
+                          ("restart", "18"), ("surface flux bcs", "8"),
+                          ("body forces", "8")):
+        if resolved.get(section):
+            raise NotImplementedError(
+                f"deck section {section!r} is not ported yet: ROADMAP "
+                f"queue 1, item {item}")
+    disc = resolved["discretization"]
+
+    mesh = read_mesh_file(Path(disc["mesh file"]))
+    if disc.get("build coordinate sidesets", False):
+        built = coordinate_side_sets(mesh)
+        clash = sorted(set(built) & set(mesh.side_sets))
+        if clash:
+            raise ValueError(
+                f"build coordinate sidesets would redefine existing side "
+                f"set(s): {clash}")
+        mesh = replace(mesh, side_sets={**mesh.side_sets, **built})
+    ndims = int(mesh.nodes.shape[1])
+
+    gr_section = resolved["residuals"]["global residual"]
+    gr = resolve_global_residual(gr_section["type"]).from_deck(
+        gr_section, ndims=ndims)
+
+    def_type = DefType[gr_section["def_type"].upper()]
+    local_section = resolved["residuals"]["local residual"]
+    models_by_block = _build_models(local_section, mesh, def_type, dtype,
+                                    device)
+    modes_by_block = {
+        b: (GlobalResidualMode.CLOSED_FORM
+            if m.supports_closed_form_cauchy
+            else GlobalResidualMode.COUPLED)
+        for b, m in models_by_block.items()}
+
+    layouts = _build_field_layouts(disc, gr, mesh.element_family)
+    components = {str(gr.var_names[r]): int(gr._num_eqs[r])
+                  for r in range(gr.num_residuals)}
+    dirichlet = _build_dirichlet_bcs(resolved.get("dirichlet bcs"), gr)
+    dof_map = build_dof_map(mesh, layouts, dirichlet, components)
+
+    quad = (disc.get("quadrature") or {}).get("volume degree")
+    assembly_quad = (None if quad is None else
+                     {mesh.element_family:
+                      _VOLUME_RULES[mesh.element_family](int(quad))})
+
+    abs_tol, rel_tol = _deck_tols(local_section, "fe_local", dtype)
+    fe_problem = build_fe_problem(
+        mesh=mesh, dof_map=dof_map, gr=gr,
+        models_by_block=models_by_block, modes_by_block=modes_by_block,
+        assembly_quadrature=assembly_quad,
+        print_local_convergence=bool(
+            local_section.get("print convergence", False)),
+        local_newton_settings={
+            "max_iters": int(local_section["nonlinear max iters"]),
+            "abs_tol": abs_tol, "rel_tol": rel_tol,
+            "line_search_settings": local_section.get("line search", {}),
+        }, dtype=dtype, device=device)
+
+    return FEProblemBundle(resolved=resolved, fe_problem=fe_problem,
+                           t_schedule=_load_t_schedule(disc))
+
+
+def nonlinear_settings(bundle: FEProblemBundle) -> dict[str, Any]:
+    """The global Newton's settings from the deck's ``global residual``
+    section (the JAX package's ``cli/fe_subcommands._nls_settings``)."""
+    gr = bundle.resolved["residuals"]["global residual"]
+    abs_tol, rel_tol = _deck_tols(gr, "fe_global", bundle.fe_problem.dtype)
+    return {"max iters": int(gr["nonlinear max iters"]),
+            "abs tol": abs_tol, "rel tol": rel_tol,
+            "print convergence": bool(gr.get("print convergence", False)),
+            "line search": gr.get("line search", {})}
+
+
+def run_primal_fe(bundle: FEProblemBundle, stats: list | None = None
+                  ) -> tuple[FEState, list[dict[str, float]]]:
+    """The deck's quasi-static primal drive, ``(FEState, solver_log)``:
+    what ``cmad primal`` computes before it writes. The deck's ``driver``
+    must be ``stepped`` (the scanned and host drivers are not ported:
+    ROADMAP queue 1, item 15)."""
+    from cmad_tpu_torch.fem.driver import fe_quasistatic_drive_stepped
+
+    gr = bundle.resolved["residuals"]["global residual"]
+    driver = gr.get("driver", "scan")
+    if driver != "stepped":
+        raise NotImplementedError(
+            f"driver {driver!r} is not ported yet (ROADMAP queue 1, item "
+            "15); set 'driver: stepped' in the global residual section")
+    return fe_quasistatic_drive_stepped(
+        bundle.fe_problem, bundle.t_schedule.tolist(),
+        nonlinear_solver_settings=nonlinear_settings(bundle),
+        linear_solver_settings=bundle.resolved["linear solver"],
+        max_iters_per_dispatch=gr.get("max iters per dispatch"),
+        steps_per_dispatch=gr.get("steps per dispatch"), stats=stats)
+
+
+# ----------------------------------------------------------------------
+# deck-section helpers
+# ----------------------------------------------------------------------
+def _deck_tols(section, kind: str, dtype: torch.dtype) -> tuple[float, float]:
+    """The section's Newton tolerances. Decks are written against the
+    float64 tolerances; in float32 they are raised to that dtype's floor
+    (``config.newton_tols``), as the JAX package's f32 policy did."""
+    abs_tol = float(section["nonlinear absolute tol"])
+    rel_tol = float(section["nonlinear relative tol"])
+    if dtype == torch.float64:
+        return abs_tol, rel_tol
+    floor_abs, floor_rel = config.newton_tols(kind, dtype)
+    return max(abs_tol, floor_abs), max(rel_tol, floor_rel)
+
+
+def _with_material_defaults(params_section: dict[str, Any],
+                            model_cls: type[Model]) -> dict[str, Any]:
+    merged = dict(params_section)
+    for key, default in model_cls.material_defaults().items():
+        merged.setdefault(key, default)
+    return merged
+
+
+def _build_models(local_section, mesh, def_type, dtype,
+                  device) -> dict[str, Model]:
+    materials = local_section["materials"]
+    if set(materials) != set(mesh.element_blocks):
+        raise ValueError(
+            f"materials keys {sorted(materials)} must match mesh blocks "
+            f"{sorted(mesh.element_blocks)}")
+    model_cls = resolve_model(local_section["type"])
+    return {
+        b: model_cls.from_deck(
+            local_section,
+            build_parameters(_with_material_defaults(materials[b],
+                                                     model_cls),
+                             dtype=dtype, device=device),
+            def_type)
+        for b in materials}
+
+
+def _build_field_layouts(disc, gr: GlobalResidual,
+                         family: ElementFamily):
+    overrides = disc.get("finite elements") or {}
+    var_names = {str(gr.var_names[r]) for r in range(gr.num_residuals)}
+    unknown = set(overrides) - var_names
+    if unknown:
+        raise ValueError(
+            f"discretization.finite elements: unknown var_name(s) "
+            f"{sorted(unknown)}; GR var_names: {sorted(var_names)}")
+    layouts = []
+    for r in range(gr.num_residuals):
+        var = str(gr.var_names[r])
+        fe = (_resolve_fe(overrides[var], family, var)
+              if var in overrides else _DEFAULT_FE[family])
+        layouts.append(GlobalFieldLayout(name=var, finite_element=fe))
+    return layouts
+
+
+def _resolve_fe(name: str, family: ElementFamily,
+                var: str) -> FiniteElement:
+    fe = _FE_BY_NAME.get(name)
+    if fe is None:
+        raise ValueError(
+            f"finite elements[{var!r}]: unknown FE {name!r}; known: "
+            f"{sorted(_FE_BY_NAME)}")
+    if fe.element_family != family:
+        raise ValueError(
+            f"finite elements[{var!r}]: {name!r} is "
+            f"{fe.element_family.name} but the mesh is {family.name}")
+    return fe
+
+
+def _resid_idx(resid_name: str, gr: GlobalResidual, where: str) -> int:
+    try:
+        return gr.resid_names.index(resid_name)
+    except ValueError as e:
+        raise ValueError(
+            f"{where}: residual {resid_name!r} is not declared by the GR "
+            f"(known: {gr.resid_names})") from e
+
+
+def _build_dirichlet_bcs(section, gr: GlobalResidual):
+    if not section:
+        return []
+    bcs = []
+    for entry_name, entry in section.get("expression", {}).items():
+        resid_name, eq, sideset, expr = entry
+        where = f"dirichlet bcs.expression.{entry_name}"
+        r = _resid_idx(resid_name, gr, where)
+        if not 0 <= int(eq) < int(gr._num_eqs[r]):
+            raise ValueError(
+                f"{where}: eq {eq} out of range for {resid_name!r}")
+        scalar = parse_scalar_expression(expr, _COORD_NAMES)
+
+        def dbc_values(coords, t, scalar=scalar):
+            n = coords.shape[0]
+            val = np.asarray(scalar(x=coords[:, 0], y=coords[:, 1],
+                                    z=coords[:, 2], t=t), dtype=np.float64)
+            return np.broadcast_to(val, (n,)).reshape(n, 1)
+
+        bcs.append(DirichletBC([str(sideset)], str(gr.var_names[r]),
+                               [int(eq)], dbc_values))
+    return bcs
+
+
+def _load_t_schedule(disc) -> np.ndarray:
+    if "times" in disc:
+        return np.asarray(disc["times"], dtype=np.float64).ravel()
+    if "times file" in disc:
+        path = Path(disc["times file"])
+        suffix = path.suffix.lower()
+        if suffix == ".npy":
+            return np.load(path).astype(np.float64).ravel()
+        if suffix in (".txt", ".csv"):
+            return np.loadtxt(path).astype(np.float64).ravel()
+        raise ValueError(
+            f"discretization.times file: unsupported extension "
+            f"{suffix!r}")
+    n = int(disc["num steps"])
+    dt = float(disc["step size"])
+    return np.arange(n + 1, dtype=np.float64) * dt

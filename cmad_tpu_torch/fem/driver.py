@@ -1,0 +1,148 @@
+"""Quasi-static time-loop driver, stepped.
+
+Port of ``fe_quasistatic_drive_stepped`` of ``cmad_tpu/fem/driver.py``
+(parity: reference ``cmad/fem/driver.py``, host loop). Each time step
+runs the full FE Newton (``fem/nonlinear_solver.py``) on the problem's
+device, then the TRUE embedded residual of the converged state and of
+the step's start (one residual assembly each), so an iteration-capped
+Newton cannot ship a silently wrong history: the pair goes into the
+solver log and a step far above its tolerances warns.
+
+The per-IP state stays in the component-major carrier layout
+(``fem/xi_carrier.py``) for the whole drive: packed once here, unpacked
+to the AoS ``FEState`` view once per step.
+
+Not ported: the scanned trajectory and its ``steps_per_dispatch``
+windows (ROADMAP queue 1, item 15); ``max_iters_per_dispatch``, which
+answers a remote TPU link's per-execution ceiling, is accepted and
+logged as a no-op.
+"""
+from __future__ import annotations
+
+import logging
+import time
+import warnings
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from cmad_tpu_torch.fem.assembly import (
+    assemble_global,
+    params_by_block_from_models,
+)
+from cmad_tpu_torch.fem.fe_problem import FEProblem, FEState
+from cmad_tpu_torch.fem.nonlinear_solver import (
+    DEFAULT_LINEAR_SOLVER_SETTINGS,
+    default_nonlinear_settings,
+    fe_newton_solve,
+)
+from cmad_tpu_torch.fem.sparse_solve import (
+    _embedded_bc_enforce,
+    _embedded_residual,
+)
+from cmad_tpu_torch.fem.xi_carrier import (
+    pack_xi_by_block,
+    unpack_xi_by_block,
+)
+
+log = logging.getLogger(__name__)
+
+
+def _residual_norm(fe_problem, params_by_block, U, U_prev, xi_prev,
+                   t: float) -> float:
+    """||r|| of the embedded residual at ``U`` for the step from
+    ``(U_prev, xi_prev)`` to time ``t``."""
+    fe_arrays = fe_problem.kernel_arrays
+    presc_idx = fe_arrays.prescribed_indices
+    pv = torch.as_tensor(
+        fe_problem.dof_map.evaluate_prescribed_values(fe_arrays.dbc_arrays,
+                                                      t),
+        dtype=U.dtype, device=U.device)
+    with torch.no_grad():
+        K, R, _ = assemble_global(fe_problem, fe_arrays, params_by_block, U,
+                                  U_prev, t, xi_prev_by_block=xi_prev)
+        _, K_ii = _embedded_bc_enforce(K, presc_idx)
+        r = _embedded_residual(R, K, U, presc_idx, pv, K_ii)
+        return float(torch.linalg.norm(r))
+
+
+def fe_quasistatic_drive_stepped(fe_problem: FEProblem,
+                                 t_schedule: Sequence[float],
+                                 nonlinear_solver_settings: dict | None = None,
+                                 linear_solver_settings: dict | None = None,
+                                 U_init=None, xi_init_by_block=None,
+                                 max_iters_per_dispatch: int | None = None,
+                                 steps_per_dispatch: int | None = None,
+                                 stats: list | None = None):
+    """Stepped drive: one FE Newton per time step, then the step's true
+    residual pair.
+
+    Returns ``(FEState, solver_log)`` with per-step
+    ``{"final_residual", "initial_residual"}`` entries. ``stats``, when
+    given, receives one dict per step (``fem/nonlinear_solver.py``:
+    Newton iterations, assemblies, CG iterations per solve; here also
+    the two residual assemblies of the pair, and ``wall_s``, the step's
+    host seconds up to its residual pair, which the host reads, so the
+    device has finished the step).
+    """
+    if len(t_schedule) < 2:
+        raise ValueError(
+            f"t_schedule needs >= 2 entries; got {len(t_schedule)}")
+    if steps_per_dispatch is not None:
+        raise NotImplementedError(
+            "steps_per_dispatch (a scan over a window of steps) is not "
+            "ported yet: ROADMAP queue 1, item 15")
+    if max_iters_per_dispatch is not None:
+        log.info("max_iters_per_dispatch=%s ignored: it bounds one device "
+                 "program's duration on a remote TPU link; each Newton "
+                 "iteration here is its own set of launches",
+                 max_iters_per_dispatch)
+    nls = {**default_nonlinear_settings(fe_problem.dtype),
+           **(nonlinear_solver_settings or {})}
+    lss = {**DEFAULT_LINEAR_SOLVER_SETTINGS,
+           **(linear_solver_settings or {})}
+    params = params_by_block_from_models(fe_problem)
+    state = FEState.from_problem(fe_problem, t_init=float(t_schedule[0]),
+                                 U_init=None if U_init is None
+                                 else np.asarray(U_init),
+                                 xi_init_by_block=xi_init_by_block)
+    dev, dtype = fe_problem.device, fe_problem.dtype
+
+    def _check_step(i, t, norm, norm0):
+        if (norm >= 100.0 * float(nls["abs tol"])
+                and norm >= 100.0 * float(nls["rel tol"]) * norm0):
+            warnings.warn(
+                f"stepped FE Newton at step {i} (t={t}) returned "
+                f"||R|| = {norm:.3e} (||R0|| = {norm0:.3e}), far above "
+                f"abs tol {float(nls['abs tol']):.1e} / rel "
+                f"{float(nls['rel tol']):.1e} — likely an iteration-cap "
+                "exit; check the linear-solver configuration",
+                RuntimeWarning, stacklevel=2)
+
+    U = torch.as_tensor(state.U_at(0), dtype=dtype, device=dev)
+    xi = pack_xi_by_block(
+        fe_problem, {b: torch.as_tensor(state.xi_at(0, b), dtype=dtype,
+                                        device=dev)
+                     for b in fe_problem.models_by_block}, layout="aos")
+    solver_log: list[dict[str, float]] = []
+    for i, t in enumerate([float(x) for x in t_schedule[1:]], start=1):
+        step_stats: dict = {}
+        t_start = time.perf_counter()
+        U_new, xi_solved = fe_newton_solve(
+            fe_problem, params, U, xi, t, nls, lss, stats=step_stats)
+        xi_new = {**xi, **xi_solved}
+        norm = _residual_norm(fe_problem, params, U_new, U, xi, t)
+        norm0 = _residual_norm(fe_problem, params, U, U, xi, t)
+        step_stats["assemblies"] += 2
+        step_stats["wall_s"] = time.perf_counter() - t_start
+        U, xi = U_new, xi_new
+        state.append(U.cpu().numpy(),
+                     {b: v.cpu().numpy() for b, v in
+                      unpack_xi_by_block(fe_problem, xi).items()}, t_new=t)
+        solver_log.append({"final_residual": norm,
+                           "initial_residual": norm0})
+        if stats is not None:
+            stats.append(step_stats)
+        _check_step(i, t, norm, norm0)
+    return state, solver_log

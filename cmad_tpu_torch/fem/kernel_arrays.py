@@ -1,0 +1,91 @@
+"""Static FE assembly arrays on the problem's device.
+
+Port of ``cmad_tpu/fem/kernel_arrays.py`` (parity: reference
+``cmad/fem/kernel_arrays.py``). Mesh-sized index arrays, the geometry
+cache, the assembled COO pattern with its dedup scatter, and the
+embedded-BC sparsity, built once per problem. The JAX package passes
+them as one pytree so that they cross ``jit`` as traced arguments; here
+they are tensors on the device the FE problem runs on, and the Dirichlet
+arrays stay on the host, where the prescribed values are evaluated.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import TYPE_CHECKING
+
+import torch
+
+from cmad_tpu_torch.fem.dof import DBCArrays, build_dbc_arrays
+from cmad_tpu_torch.fem.sparse_solve import (
+    EmbeddedSparsity,
+    build_embedded_sparsity,
+)
+from cmad_tpu_torch.typing import Tensor
+
+if TYPE_CHECKING:
+    from cmad_tpu_torch.fem.fe_problem import FEProblem
+
+
+@dataclass(frozen=True)
+class FEKernelArrays:
+    """Static mesh-derived arrays read by the FE kernels."""
+
+    u_gather_eq_by_block: dict[str, tuple[Tensor, ...]]
+    r_scatter_eq_by_block: dict[str, tuple[Tensor, ...]]
+    coo_rows: Tensor
+    coo_cols: Tensor
+    coo_indptr: Tensor
+    coo_dedup_scatter: Tensor
+    geometry_cache: dict[str, dict]
+    embedded_sparsity: EmbeddedSparsity
+    prescribed_indices: Tensor
+    dbc_arrays: DBCArrays
+
+
+def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
+    import numpy as np
+
+    from cmad_tpu_torch.fem.assembly import (
+        assembled_coo_pattern,
+        element_eq_indices,
+    )
+
+    mesh = fe_problem.mesh
+    dof_map = fe_problem.dof_map
+    dev = fe_problem.device
+    num_residuals = fe_problem.gr.num_residuals
+    num_fields = len(dof_map.field_layouts)
+
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    u_gather, r_scatter = {}, {}
+    for block in fe_problem.evaluators_by_block:
+        conn = mesh.connectivity[mesh.element_blocks[block]]
+        n_elems = conn.shape[0]
+        gathers = []
+        for fi in range(num_fields):
+            nd = int(dof_map.num_dofs_per_basis_fn[fi])
+            eq = element_eq_indices(conn, dof_map, fi)
+            gathers.append(on(eq.reshape(n_elems, -1, nd)))
+        u_gather[block] = tuple(gathers)
+        r_scatter[block] = tuple(
+            on(element_eq_indices(conn, dof_map,
+                                  fe_problem.field_idx_per_block[r]))
+            for r in range(num_residuals))
+
+    rows, cols, dedup = assembled_coo_pattern(fe_problem)
+    indptr = np.searchsorted(rows, np.arange(dof_map.num_total_dofs + 1),
+                             side="left")
+
+    return FEKernelArrays(
+        u_gather_eq_by_block=u_gather,
+        r_scatter_eq_by_block=r_scatter,
+        coo_rows=on(rows),
+        coo_cols=on(cols),
+        coo_indptr=on(indptr),
+        coo_dedup_scatter=on(dedup),
+        geometry_cache=fe_problem.geometry_cache,
+        embedded_sparsity=build_embedded_sparsity(fe_problem, rows, cols),
+        prescribed_indices=on(dof_map.prescribed_indices),
+        dbc_arrays=build_dbc_arrays(dof_map))

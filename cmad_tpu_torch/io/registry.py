@@ -4,8 +4,8 @@ Port of ``cmad_tpu/io/registry.py`` (parity: reference
 ``cmad/io/registry.py:54-213``). Registration happens at class definition
 via decorators; resolution imports the conventional module of the port
 (``cmad_tpu_torch.models.<name>``) on demand, so importing the io layer
-has no model-import side effects. The QoI and global-residual
-registries come with those slices. Names are also discoverable
+has no model-import side effects. The QoI registry comes with the
+gradient slice. Names are also discoverable
 without import through the schema fragments, which both packages share
 as data: ``cmad_tpu/io/schemas/<kind>/<name>.yaml``, read by path.
 """
@@ -16,6 +16,7 @@ from collections.abc import Callable
 from pathlib import Path
 
 _MODEL_REGISTRY: dict[str, type] = {}
+_GLOBAL_RESIDUAL_REGISTRY: dict[str, type] = {}
 
 _SCHEMA_DIR = Path(__file__).resolve().parents[2] / "cmad_tpu" / "io" \
     / "schemas"
@@ -65,3 +66,16 @@ def resolve_model(name: str) -> type:
 
 def registered_model_names() -> list[str]:
     return _registered_names(_MODEL_REGISTRY, "models")
+
+
+def register_global_residual(name: str):
+    return _register(_GLOBAL_RESIDUAL_REGISTRY, name)
+
+
+def resolve_global_residual(name: str) -> type:
+    return _resolve(_GLOBAL_RESIDUAL_REGISTRY, name,
+                    "cmad_tpu_torch.global_residuals", "global residual")
+
+
+def registered_global_residual_names() -> list[str]:
+    return _registered_names(_GLOBAL_RESIDUAL_REGISTRY, "global_residuals")

@@ -169,16 +169,22 @@ def test_build_parameters_from_deck_matches():
 
 def test_port_imports_neither_jax_nor_cmad_tpu():
     """Importing the port and every one of its modules, in a fresh
-    interpreter, leaves jax and cmad_tpu out of sys.modules."""
+    interpreter, leaves jax and cmad_tpu out of sys.modules, and the deck
+    parsers too (yaml, jsonschema, h5py: the GPU host has none of them,
+    and the FE entry point takes the deck as a dict)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cmad_tpu_torch\n"
-        "for m in pkgutil.walk_packages(cmad_tpu_torch.__path__, "
-        "'cmad_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "cmad_tpu_torch.__path__, 'cmad_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'cmad_tpu'))\n"
+        "('jax', 'jaxlib', 'cmad_tpu', 'yaml', 'jsonschema', 'h5py'))\n"
         "assert not bad, bad\n"
+        "assert {'cmad_tpu_torch.cli.fe_common', "
+        "'cmad_tpu_torch.global_residuals.small_disp_equilibrium'} "
+        "<= set(names)\n"
         "print('imported', len([k for k in sys.modules "
         "if k.startswith('cmad_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
