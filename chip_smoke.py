@@ -5,8 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels of ``cmad_tpu_torch/csrc`` (nvcc, into
-``build/cmad_tpu_torch/``), checks each against its plain PyTorch version
+It builds the CUDA kernels of ``cmad_tpu_torch/csrc`` (one nvcc per
+source, started together, into ``build/cmad_tpu_torch/``): the four J2
+return maps, their f32 history with 1-12 Newton iterations (the roofline
+experiment's kernel R), and the reproducible sums ``segment_sum`` and
+``csr_matvec``. It checks each against its plain PyTorch version
 on the card, drives the port's public entry points at the headline sizes
 and checks the answers against the plain path and against the yield
 condition, and prints timings of the kernel and plain paths measured with
@@ -35,7 +38,25 @@ the built library's SASS counts them). The paths driven:
   counts its ``j2_soa_step`` launches against the assemblies its Newton
   and line searches made, and the last two time an assembly, K1 at the
   FE shape (on the device, from a CUDA graph), the two-level setup and
-  one CG solve.
+  one CG solve;
+- determinism: the 47,628-tet drive a second time in the same process,
+  bit for bit the same U history, Newton path and CG counts; then
+  ``segment_sum`` on the assembly's dedup plan against ``index_add_`` on
+  the CPU bit for bit, and ``csr_matvec`` against PyTorch's CSR product,
+  each timed on the device beside the PyTorch call it replaces;
+- the FE J2 stepped gradient of the notch calibration
+  (``benchmarks/notch_hosford/calibrate_scale.py``: a truth at Y = 2.0
+  from the port's primal, then J and dJ/dc at Y = 2.6 under the log
+  transform, ``fe_displacement_match``), through ``build_fe_stepped_vg``:
+  on 480 tets at a Newton tolerance of 1e-12, the card (CG at 1e-10)
+  against the CPU (plain step, direct) and against a central difference
+  on the card; on 47,628 tets with the records' solver against
+  cmad_tpu's CPU f64 numbers, twice, bit for bit, with the forward and
+  reverse sweeps' time split;
+- the roofline experiment (``ops/roofline.py``): the f32 history at
+  2,097,152 points x 16 steps, Newton iterations 1-12 at 8 steps a
+  launch and 1-16 steps a launch at 8 iterations, each row against the
+  plain drive.
 
 It prints one line per phase (each with its wall seconds), the card's
 name and power limit, a JSON line with one entry per kernel, then the
@@ -167,6 +188,46 @@ FE_SMALL_BOUND = 1e-5
 # K1 reads 7 rows of xi and 6 of de and writes 8 rows of xi': 21 x 8 B
 BYTES_PER_K1_POINT = 168
 GRAPH_REPS = 20     # K1 launches per CUDA graph, timed on the device
+
+# the FE gradient of the notch calibration
+# (benchmarks/notch_hosford/calibrate_scale.py:86-160): the truth is the
+# primal at the deck's Y = 2.0; J and dJ/dc at Y = 2.6, Y active under the
+# log transform about 2.0 (Y = 2.0 exp(c), so dJ/dY = dJ/dc / Y), against
+# the truth's displacements (fe_displacement_match, the records' weight)
+GRAD_Y_TRUTH, GRAD_Y = 2.0, 2.6
+GRAD_WEIGHT = 1.0e6
+# fe-grad-small's global Newton tolerance: the deck's 1e-8 leaves J with
+# the Newton's stopping noise (on the CPU, a central difference at h = 1e-5
+# in c was off by 2.8e-3, and the 1e-8 direct and records' solvers
+# differed by 6.1e-7 in J); at 1e-12 a central difference at h = 1e-4 is
+# within 1.0e-9 of the gradient and CG at 1e-10 within 3.4e-12 of the
+# direct solves (both on the CPU)
+GRAD_SMALL_TOL = 1e-12
+GRAD_SMALL_H = 1e-4
+# card (cg + two_level at 1e-10) vs CPU (plain step, direct), relative:
+# 1.4e-12 in J and 3.4e-12 in the gradient on the CPU's own pair; the
+# card's other summation orders get three orders of margin
+GRAD_SMALL_J_RTOL, GRAD_SMALL_G_RTOL = 1e-9, 1e-8
+# the card's gradient vs its central difference: the truncation error at
+# h = 1e-4 is about 1e-8 (1.2e-6 at h = 1e-3, quadratic in h), and J's
+# Newton noise at 1e-12 adds 1e-9
+GRAD_FD_RTOL = 1e-6
+# cmad_tpu on the CPU in f64 with sparse-direct solves, the same deck with
+# Newton cap 50 (tools/fe_notch_reference.py --mesh notch_h0.015.exo
+# --max-iters 50 --gradient, jax 0.9.0): J and dJ/dc at Y = 2.6
+FE_GRAD_REF_J = 1.0050916436682982
+FE_GRAD_REF_DJ_DC = 8.14695779185205
+# fe-grad against it: both Newtons stop at the deck's 1e-8 relative
+# residual on their own paths, the card's truth is its own primal (CG at
+# 1e-6) and its transpose solves stop at CG's static 1e-6: at 480 tets the
+# records' solver and direct solves, each with its own truth, differed by
+# 6.1e-7 in J and 3.1e-7 in dJ/dc (CPU); the bounds leave an order of
+# magnitude for J and three for the gradient, whose transpose solve's
+# 1e-6 error enters it directly
+FE_GRAD_J_RTOL, FE_GRAD_G_RTOL = 1e-5, 1e-3
+SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
+# R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
+ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
 
 
 def notch_deck(mesh: str, solver: dict) -> dict:
@@ -1035,12 +1096,15 @@ def main() -> int:
     sync()
     lap("mp-gradient")
 
-    # ---------------- 12-14. the FE J2 primal on the notch ----------------
+    # ---------------- the FE J2 primal and gradient on the notch ---------
     from cmad_tpu_torch.cli.fe_common import (
         build_fe_problem_from_deck,
+        build_fe_stepped_vg,
         nonlinear_settings,
         run_primal_fe,
     )
+    from cmad_tpu_torch.ops import roofline as rl
+    from cmad_tpu_torch.ops import segment_sum as segsum
     from cmad_tpu_torch.fem.assembly import (
         assemble_global,
         gather_element_U,
@@ -1059,24 +1123,33 @@ def main() -> int:
     from cmad_tpu_torch.fem.two_level import make_two_level_preconditioner
     from cmad_tpu_torch.fem.xi_carrier import pack_xi_by_block
 
+    def reset_counts():
+        cuda_rr.reset_launch_counts()
+        segsum.reset_launch_counts()
+
+    def read_counts():
+        return {**cuda_rr.launch_counts(), **segsum.launch_counts()}
+
     def fe_drive(phase, bundle):
-        """The deck's primal from its bundle with K1's launches counted
-        from 0: (state, log, per-step stats, launches, peak bytes)."""
+        """The deck's primal from its bundle with the kernels' launches
+        counted from 0: (state, log, per-step stats, launches, peak
+        bytes)."""
         sync()
         torch.cuda.reset_peak_memory_stats()
-        cuda_rr.reset_launch_counts()
+        reset_counts()
         stats: list = []
         state, log = run_primal_fe(bundle, stats)
         sync()
-        k1 = cuda_rr.launch_counts()
+        k1 = read_counts()
         peak = torch.cuda.max_memory_allocated()
         implied = sum(s["assemblies"] for s in stats)
         say(phase, f"j2_soa_step launches {k1['j2_soa_step']}; assemblies "
                    f"implied by the Newton and line-search iterations "
                    f"(each Newton start, each probe, each step's residual "
-                   f"pair) {implied}; other kernels {k1}")
-        if k1["j2_soa_step"] != implied or implied < len(stats):
-            raise RuntimeError(f"{phase}: K1 launches {k1} != assemblies "
+                   f"pair) {implied}; all kernels {k1}")
+        if k1["j2_soa_step"] != implied or implied < len(stats) \
+                or not k1["segment_sum"] or not k1["csr_matvec"]:
+            raise RuntimeError(f"{phase}: launches {k1}, assemblies "
                                f"{implied}")
         nls = nonlinear_settings(bundle)
         for k, (s, e) in enumerate(zip(stats, log, strict=True), start=1):
@@ -1093,7 +1166,7 @@ def main() -> int:
         U = np.stack(state.U_history)
         if not np.isfinite(U).all():
             raise RuntimeError(f"{phase}: non-finite U")
-        return state, log, stats, k1["j2_soa_step"], peak
+        return state, log, stats, k1, peak
 
     def ms_of(fn) -> float:
         """Best of ROUNDS rounds of REPS calls of ``fn()``, ms per call."""
@@ -1206,7 +1279,7 @@ def main() -> int:
                 "k1_host": k1_host,
                 "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n}
 
-    # ---------------- 12. fe-notch-small ----------------
+    # ---------------- fe-notch-small ----------------
     bundle = build_fe_problem_from_deck(notch_deck(FE_SMALL_MESH,
                                                    FE_CG_TIGHT))
     if bundle.fe_problem.device.type != "cuda":
@@ -1229,7 +1302,7 @@ def main() -> int:
     del bundle, cpu_bundle, gpu_state, cpu_state
     lap("fe-notch-small")
 
-    # ---------------- 13. fe-notch (main path) ----------------
+    # ---------------- fe-notch ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS))
     fe = bundle.fe_problem
@@ -1238,7 +1311,7 @@ def main() -> int:
                     f"{fe.dof_map.num_total_dofs} dofs; problem built in "
                     f"{time.perf_counter() - t0:.2f} s (host)")
     t0 = time.perf_counter()
-    state, log, stats, fe_launches, peak = fe_drive("fe-notch", bundle)
+    state, log, stats, fe_counts, peak = fe_drive("fe-notch", bundle)
     drive_s = time.perf_counter() - t0
     norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
     alphas = [float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
@@ -1258,12 +1331,250 @@ def main() -> int:
     say("fe-notch", f"j2_soa_step launches per step "
                     f"{[s['assemblies'] for s in stats]} at N = "
                     f"{fe_k1['n']}")
-    del bundle, fe, state
     sync()
     torch.cuda.empty_cache()
     lap("fe-notch")
 
-    # ---------------- 14. fe-notch-large ----------------
+    # ---------------- determinism ----------------
+    # the same drive again in this process: bit for bit the same U
+    # history, Newton path and CG counts
+    state2, _log2, stats2, _c2, _p2 = fe_drive("determinism", bundle)
+    paths = [[s["newton_iters"] for s in st] for st in (stats, stats2)]
+    cgs = [[s.get("cg_iters", []) for s in st] for st in (stats, stats2)]
+    same_U = np.array_equal(np.stack(state.U_history),
+                            np.stack(state2.U_history))
+    say("determinism", f"47,628 tets, two drives: Newton iterations per "
+                       f"step {paths[0]} and {paths[1]}; CG iterations "
+                       f"equal: {cgs[0] == cgs[1]}; U histories "
+                       f"bit-identical: {same_U}")
+    if not (same_U and paths[0] == paths[1] and cgs[0] == cgs[1]):
+        raise RuntimeError("determinism: two drives of the notch differ")
+    del state2
+    # segment_sum on every plan of the FE path at this size against its
+    # plain version, index_add_ on the CPU, bit for bit; each timed on the
+    # device (CUDA graph) beside index_add_ on the card. The kernels line
+    # reports the assembly's dedup plan (47,628 x 144 COO entries)
+    ka = fe.kernel_arrays
+    two = get_two_level_pattern(fe).on(dev, torch.float64)
+    plans = {"residual scatter": (ka.eq_plan_by_block["block_1"][0], ()),
+             "COO dedup": (ka.coo_dedup_plan, ()),
+             "COO rows": (ka.coo_row_plan, ()),
+             "CSR dedup": (fe.embedded_sparsity.dedup_plan, ()),
+             "two-level restriction": (two["agg_plan"], (6,)),
+             "coarse pairs": (two["pair_plan"], (6, 6))}
+    for label, (plan, width) in plans.items():
+        vals = torch.randn((plan.n_entries, *width), generator=gen,
+                           device=dev, dtype=torch.float64)
+        scale = (torch.randn(plan.n_entries, generator=gen, device=dev,
+                             dtype=torch.float64)
+                 if label == "two-level restriction" else None)
+        seg_out = segsum.segment_sum(vals, plan, scale)
+        if plan.target is None:      # entries outside every segment
+            idx, src = plan.sorted_target, vals[plan.perm]
+        else:
+            idx, src = plan.target, vals
+        if scale is not None:
+            src = src * scale.reshape(-1, *([1] * len(width)))
+        cpu_ref = torch.zeros(seg_out.shape, dtype=torch.float64).index_add_(
+            0, idx.cpu(), src.cpu())
+        seg_equal = bool(torch.equal(seg_out.cpu(), cpu_ref))
+        seg_ms = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
+                          sync)
+        lib_ms = graph_ms(lambda: vals.new_zeros(seg_out.shape).index_add_(
+            0, idx, src), sync)
+        # the entries the plan sums (the CSR dedup leaves the prescribed
+        # rows and columns out), each value, index and output once
+        w = int(np.prod(width, dtype=np.int64))
+        summed = int(plan.sorted_target.shape[0])
+        seg_bytes = 8 * (summed * (w + (plan.perm is not None)
+                                   + (scale is not None))
+                         + plan.n_segments * (w + 1) + 1)
+        seg_bound = max(seg_bytes / HBM_BYTES_PER_S,
+                        summed * w * (1 + (scale is not None))
+                        / PEAK_OPS["fp64"]) * 1e3
+        say("determinism", f"segment_sum, {label} ({plan.n_entries} entries "
+                           f"x {w} into {plan.n_segments}): card vs "
+                           f"index_add_ on the CPU bit-identical: "
+                           f"{seg_equal}; device time {seg_ms:.4f} ms, "
+                           f"index_add_ on the card {lib_ms:.4f} ms; bound "
+                           f"{seg_bound:.4f} ms (bytes)")
+        if not seg_equal:
+            raise RuntimeError(f"determinism: segment_sum ({label}) differs "
+                               f"from the CPU")
+        if label == "COO dedup":
+            results["segsum"] = (float((seg_out.cpu() - cpu_ref).abs().max()),
+                                 seg_ms, lib_ms, seg_bound)
+        del vals, scale, seg_out, cpu_ref, src
+    # the CG's product on the step's first Newton system: csr_matvec
+    # against PyTorch's CSR product (cuSPARSE), its plain version
+    sp = fe.embedded_sparsity
+    K0 = _embedded_bc_enforce(assemble_global(
+        fe, ka, params_by_block_from_models(fe),
+        torch.zeros(sp.n, dtype=torch.float64, device=dev),
+        torch.zeros(sp.n, dtype=torch.float64, device=dev), 1.0,
+        xi_prev_by_block=pack_xi_by_block(fe, {
+            "block_1": torch.as_tensor(state.xi_at(0, "block_1"),
+                                       device=dev)}))[0],
+        ka.prescribed_indices)[0]
+    unique = segsum.segment_sum(K0, sp.dedup_plan)
+    x = torch.randn(sp.n, generator=gen, device=dev, dtype=torch.float64)
+    A = segsum.csr_tensor(sp.indptr, sp.col_indices, unique, sp.n)
+    y = segsum.csr_matvec_cuda(sp.indptr, sp.col_indices, unique, x)
+    y_lib = A @ x
+    csr_err = float((y - y_lib).abs().max())
+    csr_rel = csr_err / float(y_lib.abs().max())
+    csr_ms = graph_ms(lambda: segsum.csr_matvec_cuda(
+        sp.indptr, sp.col_indices, unique, x), sync)
+    csr_lib = graph_ms(lambda: A @ x, sync)
+    nnz = sp.num_unique
+    csr_bytes = 8 * (2 * nnz + 3 * sp.n + 1)
+    csr_bound = max(csr_bytes / HBM_BYTES_PER_S,
+                    2 * nnz / PEAK_OPS["fp64"]) * 1e3
+    say("determinism", f"csr_matvec ({sp.n} rows, {nnz} nonzeros) vs "
+                       f"PyTorch's CSR product: max rel err {csr_rel:.3e} "
+                       f"(bound {STEP_BOUND['float64']:g}, summation "
+                       f"order); device {csr_ms:.4f} ms, cuSPARSE "
+                       f"{csr_lib:.4f} ms; bound {csr_bound:.4f} ms "
+                       f"(bytes)")
+    if not csr_rel <= STEP_BOUND["float64"]:
+        raise RuntimeError("determinism: csr_matvec disagrees")
+    results["csr"] = (csr_err, csr_ms, csr_lib, csr_bound)
+    del K0, unique, x, A, y, y_lib
+    sync()
+    lap("determinism")
+
+    # ---------------- fe-grad-small ----------------
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def grad_deck(mesh, solver, data_file, tol=None):
+        """The notch deck at Y = GRAD_Y, Y active under the log
+        transform about GRAD_Y_TRUTH, with fe_displacement_match against
+        ``data_file``."""
+        deck = notch_deck(mesh, solver)
+        deck["residuals"]["local residual"]["materials"]["block_1"][
+            "plastic"]["flow stress"]["initial yield"] = {
+                "Y": {"value": GRAD_Y, "active": True,
+                      "transform": {"log": GRAD_Y_TRUTH}}}
+        deck["qoi"] = {"name": "fe_displacement_match",
+                       "data_file": str(data_file), "weight": GRAD_WEIGHT}
+        if tol is not None:
+            deck["residuals"]["global residual"].update(
+                {"nonlinear absolute tol": tol,
+                 "nonlinear relative tol": tol})
+        return deck
+
+    def save_truth(state_t, name):
+        path = work / name
+        np.save(path, np.stack(state_t.U_history).reshape(
+            len(state_t.U_history), -1, 3))
+        return path
+
+    tight = notch_deck(FE_SMALL_MESH, FE_CG_TIGHT)
+    tight["residuals"]["global residual"].update(
+        {"nonlinear absolute tol": GRAD_SMALL_TOL,
+         "nonlinear relative tol": GRAD_SMALL_TOL})
+    truth_small = save_truth(
+        run_primal_fe(build_fe_problem_from_deck(tight))[0],
+        "u_truth_480.npy")
+    vgs = {}
+    for where, solver in (("card", FE_CG_TIGHT), ("cpu", FE_DIRECT)):
+        b = build_fe_problem_from_deck(
+            grad_deck(FE_SMALL_MESH, solver, truth_small, GRAD_SMALL_TOL),
+            device="cuda" if where == "card" else "cpu")
+        p0, s0, ts, vg = build_fe_stepped_vg(b)
+        J, g = vg(p0, s0, ts)
+        vgs[where] = (p0, s0, ts, vg, J, float(g[0]))
+    p0, s0, ts, vg, J_card, g_card = vgs["card"]
+    J_cpu, g_cpu = vgs["cpu"][4], vgs["cpu"][5]
+    Jp, _ = vg(p0 + GRAD_SMALL_H, s0, ts)
+    Jm, _ = vg(p0 - GRAD_SMALL_H, s0, ts)
+    fd = (Jp - Jm) / (2 * GRAD_SMALL_H)
+    rel = {"J": abs(J_card - J_cpu) / abs(J_cpu),
+           "grad": abs(g_card - g_cpu) / abs(g_cpu),
+           "fd": abs(g_card - fd) / abs(fd)}
+    say("fe-grad-small", f"480 tets, Newton tol {GRAD_SMALL_TOL:g}: card "
+                         f"(cg + two_level 1e-10) J {J_card!r} dJ/dc "
+                         f"{g_card!r} (dJ/dY {g_card / GRAD_Y!r}); CPU "
+                         f"(plain step, direct) J {J_cpu!r} dJ/dc {g_cpu!r}: "
+                         f"rel diff J {rel['J']:.3e} (bound "
+                         f"{GRAD_SMALL_J_RTOL:g}), dJ/dc {rel['grad']:.3e} "
+                         f"(bound {GRAD_SMALL_G_RTOL:g}); central difference "
+                         f"on the card at h = {GRAD_SMALL_H:g} {fd!r}: rel "
+                         f"diff {rel['fd']:.3e} (bound {GRAD_FD_RTOL:g})")
+    if not (rel["J"] <= GRAD_SMALL_J_RTOL and rel["grad"] <= GRAD_SMALL_G_RTOL
+            and rel["fd"] <= GRAD_FD_RTOL and g_card != 0.0):
+        raise RuntimeError("fe-grad-small: the gradient misses its bounds")
+    del vgs, vg
+    lap("fe-grad-small")
+
+    # ---------------- fe-grad (main path) ----------------
+    # the truth is fe-notch's drive (the deck's Y = 2.0, the records'
+    # solver); the gradient at Y = 2.6 with the records' solver, twice
+    truth = save_truth(state, "u_truth_47628.npy")
+    del bundle, fe, state
+    sync()
+    torch.cuda.empty_cache()
+    gbundle = build_fe_problem_from_deck(grad_deck(FE_MESH, FE_RECORDS,
+                                                   truth))
+    p0, s0, ts, vg = build_fe_stepped_vg(gbundle)
+    runs = []
+    for k in range(2):
+        gstats: dict = {}
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        J, g = vg(p0, s0, ts, stats=gstats)
+        sync()
+        wall = time.perf_counter() - t0
+        if k == 0:
+            grad_counts = read_counts()
+        runs.append((J, g.copy(), gstats, wall))
+    (J, g, gstats, wall), (J2, g2, _gs2, wall2) = runs
+    ref_rel = (abs(J - FE_GRAD_REF_J) / abs(FE_GRAD_REF_J),
+               abs(float(g[0]) - FE_GRAD_REF_DJ_DC) / abs(FE_GRAD_REF_DJ_DC))
+    fwd, rev = gstats["forward"], gstats["reverse"]
+    say("fe-grad", f"47,628 tets, the records' solver: J {J!r}, dJ/dc "
+                   f"{float(g[0])!r} (dJ/dY {float(g[0]) / GRAD_Y!r}); "
+                   f"cmad_tpu (CPU f64, direct) J {FE_GRAD_REF_J!r}, dJ/dc "
+                   f"{FE_GRAD_REF_DJ_DC!r}: rel diff J {ref_rel[0]:.3e} "
+                   f"(bound {FE_GRAD_J_RTOL:g}), dJ/dc {ref_rel[1]:.3e} "
+                   f"(bound {FE_GRAD_G_RTOL:g}); two runs bit-identical: "
+                   f"J {J == J2}, gradient {np.array_equal(g, g2)}; "
+                   f"{wall:.3f} s and {wall2:.3f} s; launches {grad_counts}")
+    for k, (f, r) in enumerate(zip(fwd, rev[::-1], strict=True), start=1):
+        say("fe-grad", f"step {k}: forward {f['wall_s']:.3f} s ("
+                       f"{f['newton_iters']} Newton iterations, "
+                       f"{f['assemblies']} assemblies, CG per solve "
+                       f"{f.get('cg_iters', [])}, QoI {f['qoi_s']:.4f} s); "
+                       f"reverse {r['wall_s']:.3f} s (the rule's assembly "
+                       f"at U* and its transposes {r['assembly_s']:.3f} s, "
+                       f"transpose solve {r['solve_s']:.3f} s with CG "
+                       f"iterations {r['cg_iters']}, the QoI and the rest "
+                       f"{r['rest_s']:.3f} s)")
+    f_wall = sum(f["wall_s"] for f in fwd)
+    r_wall = sum(r["wall_s"] for r in rev)
+    say("fe-grad", f"forward sweep {f_wall:.3f} s, reverse sweep "
+                   f"{r_wall:.3f} s: assemblies "
+                   f"{sum(r['assembly_s'] for r in rev):.3f} s, transpose "
+                   f"solves {sum(r['solve_s'] for r in rev):.3f} s "
+                   f"({sum(sum(r['cg_iters']) for r in rev)} CG iterations), "
+                   f"the QoI and the rest {sum(r['rest_s'] for r in rev):.3f} "
+                   f"s")
+    if not (np.isfinite(J) and np.isfinite(g).all() and float(g[0]) != 0.0
+            and ref_rel[0] <= FE_GRAD_J_RTOL and ref_rel[1] <= FE_GRAD_G_RTOL
+            and J == J2 and np.array_equal(g, g2)):
+        raise RuntimeError("fe-grad: the gradient misses cmad_tpu's or is "
+                           "not reproducible")
+    if not all(grad_counts[k] > 0 for k in ("j2_soa_step", "segment_sum",
+                                            "csr_matvec")):
+        raise RuntimeError(f"fe-grad: a kernel never ran: {grad_counts}")
+    del gbundle, vg, runs
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-grad")
+
+    # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
                                                    FE_RECORDS))
@@ -1288,13 +1599,62 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("fe-notch-large")
 
-    # ---------------- 15. launches ----------------
-    main_path = {"j2_soa_step": fe_launches,
+    # ---------------- roofline (R) ----------------
+    # the roofline experiment's sweeps on the f32 history at its shapes,
+    # N 2,097,152 x T 16: Newton iterations 1-12 at 8 steps a launch, 1-16
+    # steps a launch at 8 iterations; every row against the plain drive
+    t0 = time.perf_counter()
+    xi_r, de_r, sc_r = rl.roofline_data(device=dev)
+    say("roofline", f"data (rng(0), the experiment's recipe) in "
+                    f"{time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    rows_r = rl.sweep(xi_r, de_r, sc_r, reps=REPS, rounds=ROUNDS,
+                      bound=HIST_BOUND["float32"])
+    sync()
+    r_launches = read_counts()["j2_soa_history_iters"]
+    for row in rows_r:
+        say("roofline", f"iters {row['newton_iters']:2d} t_steps "
+                        f"{row['t_steps']:2d}: {row['ms']:.4f} ms per drive "
+                        f"({row['launches']} launches), "
+                        f"{row['updates_per_s']:.4g} updates/s, "
+                        f"{row['bytes_per_update']:.2f} B/update, "
+                        f"{row['gb_per_s']:.1f} GB/s = "
+                        f"{row['byte_bound_share']:.1%} of the byte bound; "
+                        f"vs plain: max abs err {row['max_abs_err']:.3e}, "
+                        f"row-scaled {row['max_row_scaled_err']:.3e} (bound "
+                        f"{HIST_BOUND['float32']:g}); "
+                        f"{row['plastic_updates']} plastic updates")
+    head = next(r for r in rows_r
+                if r["newton_iters"] == 8 and r["t_steps"] == 8)
+    r_plain = best_ms(lambda x: rl.plain_drive(x, de_r, sc_r, 8), xi_r, sync)
+    r_bound = bound_ms(rl.bytes_per_update(8) * rl.N * rl.T,
+                       ops["j2_soa_history<float, 8>"], rl.N * rl.T,
+                       head["plastic_updates"])
+    results["roofline"] = (max(r["max_abs_err"] for r in rows_r),
+                           head["ms"], r_plain)
+    say("roofline", f"iters 8, t_steps 8: kernel {head['ms']:.4f} ms, plain "
+                    f"{r_plain:.4f} ms per drive; bound {r_bound[0]:.4f} ms "
+                    f"({r_bound[1]}; bytes {r_bound[2]:.4f} ms, operations "
+                    f"{r_bound[3]:.4f} ms); {r_launches} launches in the "
+                    f"sweeps")
+    del xi_r, de_r, sc_r
+    sync()
+    torch.cuda.empty_cache()
+    lap("roofline")
+
+    # ---------------- launches ----------------
+    # the FE kernels' counts are fe-grad's first gradient's (its forward
+    # Newton, reverse assemblies and transpose solves)
+    main_path = {"j2_soa_step": grad_counts["j2_soa_step"],
                  "j2_soa_history": launches["j2_soa_history"],
                  "j2_aos_step": mp_launches["j2_aos_step"],
-                 "j2_total_step": mp_launches["j2_total_step"]}
-    say("launches", f"main paths (fe-notch; history-drive; mp-batched): "
-                    f"{main_path}; fe-dispatch launched j2_soa_step "
+                 "j2_total_step": mp_launches["j2_total_step"],
+                 "j2_soa_history_iters": r_launches,
+                 "segment_sum": grad_counts["segment_sum"],
+                 "csr_matvec": grad_counts["csr_matvec"]}
+    say("launches", f"main paths (fe-grad; history-drive; mp-batched; "
+                    f"roofline): {main_path}; fe-notch's primal launched "
+                    f"{fe_counts}; fe-dispatch launched j2_soa_step "
                     f"{launches['j2_soa_step']} times")
     if not all(v > 0 for v in main_path.values()):
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
@@ -1316,33 +1676,49 @@ def main() -> int:
     bounds = {
         "j2_soa_step": fe_k1["k1_bound"],
         "j2_soa_history": bound_ms(
-            (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double>"],
+            (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double, 8>"],
             N_DRIVE * T_DRIVE, sum(hist_plastic)),
+        "j2_soa_history_iters": r_bound,
+        "segment_sum": (results["segsum"][3], "bytes"),
+        "csr_matvec": (results["csr"][3], "bytes"),
     }
-    rows = [("j2_soa_step", 173, fe_k1["k1_err"], fe_k1["k1_ms"],
-             fe_k1["k1_plain"]),
-            ("j2_soa_history", 464, results["hist_err"], drive_ms,
-             drive_plain)]
+    # (name, source, replaces, max abs err, ms, plain ms, library ms)
+    rows = [("j2_soa_step", SOURCE, f"{PALLAS}:173", fe_k1["k1_err"],
+             fe_k1["k1_ms"], fe_k1["k1_plain"], None),
+            ("j2_soa_history", SOURCE, f"{PALLAS}:464", results["hist_err"],
+             drive_ms, drive_plain, None)]
     for form, kname, line, nbytes in (("rate", "j2_aos_step", 40, 328),
                                       ("total", "j2_total_step", 624, 256)):
         ms, _entry, plain_t, plastic1 = timings[("mp", form, "float64")]
         bounds[kname] = bound_ms(nbytes * N_MP, ops[f"{kname}<double>"],
                                  N_MP, plastic1)
-        rows.append((kname, line, results[f"{form}_err"], ms, plain_t))
-    for kname, line, _err, ms, _plain in rows:
-        b_ms, by, t_bytes, t_ops = bounds[kname]
-        say("launches", f"{kname}: bound {b_ms:.4f} ms ({by}; bytes "
-                        f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms); "
-                        f"kernel {ms:.4f} ms = {b_ms / ms:.1%} of the bound")
+        rows.append((kname, SOURCE, f"{PALLAS}:{line}",
+                     results[f"{form}_err"], ms, plain_t, None))
+    r_err, r_ms, r_plain = results["roofline"]
+    seg_err, seg_ms, seg_lib, _sb = results["segsum"]
+    csr_err, csr_ms, csr_lib, _cb = results["csr"]
+    rows += [("j2_soa_history_iters", SOURCE, f"{ROOFLINE}:40", r_err, r_ms,
+              r_plain, None),
+             ("segment_sum", SEGSUM_SOURCE,
+              "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
+              "assembly.py, sparse_solve.py, two_level.py", seg_err, seg_ms,
+              seg_lib, seg_lib),
+             ("csr_matvec", SEGSUM_SOURCE,
+              "torch.sparse_csr_tensor @ x (no Pallas kernel): "
+              "cmad_tpu_torch/fem/sparse_solve.py", csr_err, csr_ms, csr_lib,
+              csr_lib)]
+    for kname, _src, _rep, _err, ms, _plain, _lib in rows:
+        b_ms, by = bounds[kname][:2]
+        say("launches", f"{kname}: bound {b_ms:.4f} ms ({by}); kernel "
+                        f"{ms:.4f} ms = {b_ms / ms:.1%} of the bound")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": kname, "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:{line}", "launches": main_path[kname],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_t,
-         "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
-         "library_ms": None}
-        for kname, line, err, ms, plain_t in rows]}), flush=True)
+        {"name": kname, "route": "cuda", "source": src, "replaces": rep,
+         "launches": main_path[kname], "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_t, "bound_ms": bounds[kname][0],
+         "bound_by": bounds[kname][1], "library_ms": lib}
+        for kname, src, rep, err, ms, plain_t, lib in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

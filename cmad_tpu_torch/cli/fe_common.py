@@ -1,15 +1,17 @@
-"""FE deck builder and the FE primal drive.
+"""FE deck builder, the FE primal drive and the stepped gradient.
 
-Port of the FE primal part of ``cmad_tpu/cli/fe_common.py`` (parity:
-reference ``cmad/cli/common.py:149-785``, FE half): deck -> mesh -> GR
--> per-block models -> Dirichlet BCs -> GlobalDofMap -> FEProblem + time
-schedule, on the card unless the caller asks for the CPU.
+Port of the FE part of ``cmad_tpu/cli/fe_common.py`` (parity: reference
+``cmad/cli/common.py:149-785``, FE half): deck -> mesh -> GR -> per-block
+models -> Dirichlet BCs -> GlobalDofMap -> FEProblem + time schedule +
+QoI, on the card unless the caller asks for the CPU; the parameter
+overlay (:func:`fe_params_overlay`) and the stepped value-and-gradient of
+one load case (:func:`build_fe_stepped_vg`).
 
 :func:`build_fe_problem_from_deck` takes a deck path or an
 already-loaded deck dict. A dict needs neither PyYAML nor jsonschema; a
 path needs PyYAML (imported when the deck is read). JSON-Schema
-validation, the ``cmad primal`` command and its writers, QoIs and load
-cases come with ROADMAP queue 1, items 16 and 18.
+validation, the ``cmad`` commands and their writers, load cases and the
+multi-case gradient come with ROADMAP queue 1, item 18.
 """
 from __future__ import annotations
 
@@ -38,7 +40,11 @@ from cmad_tpu_torch.io.deck import apply_deck_defaults, load_deck
 from cmad_tpu_torch.io.expressions import parse_scalar_expression
 from cmad_tpu_torch.io.mesh_io import read_mesh_file
 from cmad_tpu_torch.io.params_builder import build_parameters
-from cmad_tpu_torch.io.registry import resolve_global_residual, resolve_model
+from cmad_tpu_torch.io.registry import (
+    resolve_global_residual,
+    resolve_model,
+    resolve_qoi,
+)
 from cmad_tpu_torch.models.deformation_types import DefType
 from cmad_tpu_torch.models.model import Model
 
@@ -56,6 +62,7 @@ class FEProblemBundle:
     resolved: dict[str, Any]
     fe_problem: FEProblem
     t_schedule: np.ndarray
+    qoi: Any = None
 
 
 def build_fe_problem_from_deck(
@@ -63,15 +70,15 @@ def build_fe_problem_from_deck(
         dtype: torch.dtype = config.DEFAULT_DTYPE,
         device: torch.device | str = config.DEFAULT_DEVICE
 ) -> FEProblemBundle:
-    """The FE problem of a primal deck (a path, or the deck as a dict),
-    on ``device`` in ``dtype``; the default device is the card, and
-    without one this raises."""
+    """The FE problem of a deck (a path, or the deck as a dict), with its
+    QoI when the deck has a ``qoi`` section, on ``device`` in ``dtype``;
+    the default device is the card, and without one this raises."""
     device = config.checked_device(device)
     if isinstance(deck, dict):
         resolved = apply_deck_defaults(deck)
     else:
         resolved = apply_deck_defaults(load_deck(Path(deck)))
-    for section, item in (("qoi", "16"), ("load cases", "18"),
+    for section, item in (("load cases", "18"),
                           ("restart", "18"), ("surface flux bcs", "8"),
                           ("body forces", "8")):
         if resolved.get(section):
@@ -129,8 +136,18 @@ def build_fe_problem_from_deck(
             "line_search_settings": local_section.get("line search", {}),
         }, dtype=dtype, device=device)
 
+    t_schedule = _load_t_schedule(disc)
+    qoi = None
+    if "qoi" in resolved:
+        qoi_cls = resolve_qoi(resolved["qoi"]["name"])
+        if qoi_cls.problem_type != "fe":
+            raise ValueError(
+                f"qoi {resolved['qoi']['name']!r} is registered for "
+                f"problem_type={qoi_cls.problem_type!r}, not 'fe'")
+        qoi = qoi_cls.from_deck(resolved["qoi"], fe_problem,
+                                t_schedule.tolist())
     return FEProblemBundle(resolved=resolved, fe_problem=fe_problem,
-                           t_schedule=_load_t_schedule(disc))
+                           t_schedule=t_schedule, qoi=qoi)
 
 
 def nonlinear_settings(bundle: FEProblemBundle) -> dict[str, Any]:
@@ -164,6 +181,72 @@ def run_primal_fe(bundle: FEProblemBundle, stats: list | None = None
         linear_solver_settings=bundle.resolved["linear solver"],
         max_iters_per_dispatch=gr.get("max iters per dispatch"),
         steps_per_dispatch=gr.get("steps per dispatch"), stats=stats)
+
+
+def fe_params_overlay(fe_problem: FEProblem):
+    """``(params_flat_init, params_by_block_of_flat)``: the canonical flat
+    active-parameter vector over all blocks (each block's in turn) and the
+    differentiable overlay that rebuilds the per-block parameter trees
+    from it (the log and bounds transforms included, so a gradient is
+    taken with respect to the canonical vector)."""
+    dtype, dev = fe_problem.dtype, fe_problem.device
+    block_names = list(fe_problem.models_by_block)
+    inits, lengths = [], []
+    for b in block_names:
+        po = fe_problem.models_by_block[b].parameters
+        flat = po.flat_active_values(return_canonical=True)
+        inits.append(torch.as_tensor(flat, dtype=dtype, device=dev))
+        lengths.append(int(flat.shape[0]))
+    params_flat_init = (torch.cat(inits) if inits
+                        else torch.zeros(0, dtype=dtype, device=dev))
+    bounds = np.cumsum([0, *lengths])
+
+    def params_by_block_of_flat(params_flat):
+        return {b: fe_problem.models_by_block[b].parameters
+                .tree_with_flat_active(params_flat[bounds[i]:bounds[i + 1]],
+                                       canonical=True)
+                for i, b in enumerate(block_names)}
+
+    return params_flat_init, params_by_block_of_flat
+
+
+def build_fe_stepped_vg(bundle: FEProblemBundle):
+    """``(params_flat_init, state_init, t_schedule, vg)`` for the stepped
+    sensitivity path (``fem/stepped_adjoint.py``) of the deck's one load
+    case: ``vg(params_flat, state_init, t_schedule) -> (J, grad)``, the
+    gradient with respect to the canonical flat active vector. A deck
+    with ``load cases`` raised when it was built (ROADMAP queue 1, item
+    18)."""
+    from cmad_tpu_torch.fem.stepped_adjoint import (
+        build_fe_stepped_value_and_grad,
+    )
+
+    fe_problem = bundle.fe_problem
+    if bundle.qoi is None:
+        raise ValueError("bundle.qoi is required (non-primal subcommand)")
+    gr_section = bundle.resolved["residuals"]["global residual"]
+    if "max iters per dispatch" in gr_section:
+        raise ValueError(
+            "residuals.global residual: 'max iters per dispatch' "
+            "applies to the stepped PRIMAL drive only; the stepped "
+            "sensitivity path runs one Newton (+ its adjoint) per time "
+            "step. Remove it for gradient/calibrate decks.")
+    state = FEState.from_problem(fe_problem,
+                                 t_init=float(bundle.t_schedule[0]))
+    dev, dtype = fe_problem.device, fe_problem.dtype
+    state_init = (torch.as_tensor(state.U_at(0), dtype=dtype, device=dev),
+                  {b: torch.as_tensor(state.xi_at(0, b), dtype=dtype,
+                                      device=dev)
+                   for b in fe_problem.models_by_block})
+    params_flat_init, params_by_block_of_flat = fe_params_overlay(
+        fe_problem)
+    vg = build_fe_stepped_value_and_grad(
+        fe_problem, params_by_block_of_flat, bundle.qoi,
+        nonlinear_solver_settings={**nonlinear_settings(bundle),
+                                   "print convergence": False},
+        linear_solver_settings=bundle.resolved["linear solver"],
+        steps_per_dispatch=gr_section.get("steps per dispatch"))
+    return params_flat_init, state_init, bundle.t_schedule, vg
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,15 @@
 //                     the wide twin _kernel_soa_wide (K6) is a reshape view
 //                     of the same bytes and calls this kernel too.
 //   j2_soa_history <- _kernel_soa_hist_full (K2) and _kernel_soa_hist (K3);
-//                     the wide twins K7 and K8 are views onto it.
+//                     the wide twins K7 and K8 are views onto it. In f32
+//                     its Newton's iteration count is a template
+//                     parameter, and j2_soa_history_f32_iters launches it
+//                     with 1, 2, 4, 8 or 12 iterations: the roofline
+//                     experiment's kernel (R, `kernel` in _make_hist_call,
+//                     benchmarks/local_kernels/roofline_experiment.py:40),
+//                     K3 with t_steps and the iteration count as
+//                     parameters. Its 8-iteration instance is the kernel
+//                     of j2_soa_history_f32.
 //   j2_aos_step    <- _kernel (K4), the rate-form step on the AoS state.
 //   j2_total_step  <- _kernel_total (K5), the total-form step.
 //
@@ -305,19 +313,22 @@ __device__ __forceinline__ float f32_phase_limit(const Voce<float>& v) {
   return ok ? kF32Range : -1.f;
 }
 
-// The plastic multiplier of a yielding point: 8 Newton iterations from
-// dg = 0, ex0 = exp(-D alpha).
+// The plastic multiplier of a yielding point: Iters Newton iterations
+// from dg = 0, ex0 = exp(-D alpha), the last one with the exact divide
+// (kNewtonIters = 8 everywhere but the roofline sweep).
+template <int Iters>
 __device__ __forceinline__ float history_newton(float phi, float alpha,
                                                 float ex0,
                                                 const Material<float>&,
                                                 const Voce<float>& v,
                                                 const Voce<float>&, float) {
+  static_assert(Iters >= 1, "at least one Newton iteration");
   const float c = phi - v.ys;
   float dg = 0.f;
 #pragma unroll
-  for (int it = 0; it < kNewtonIters; ++it) {
+  for (int it = 0; it < Iters; ++it) {
     const float ex = it == 0 ? ex0 : expf(-v.d * (alpha + dg));
-    dg = newton_step(dg, c, ex, v, it + 1 == kNewtonIters);
+    dg = newton_step(dg, c, ex, v, it + 1 == Iters);
   }
   return dg;
 }
@@ -332,13 +343,16 @@ __device__ __noinline__ double history_newton_exact(double phi, double alpha,
   return voce_newton(phi, alpha, Material<double>{mu, 0.0, Y, S, D});
 }
 
-// f32_limit: f32_phase_limit(vf), computed once per thread.
+// f32_limit: f32_phase_limit(vf), computed once per thread. The f64
+// Newton runs kNewtonIters iterations only.
+template <int Iters>
 __device__ __forceinline__ double history_newton(double phi, double alpha,
                                                  double ex0,
                                                  const Material<double>& m,
                                                  const Voce<double>& v,
                                                  const Voce<float>& vf,
                                                  float f32_limit) {
+  static_assert(Iters == kNewtonIters, "the f64 Newton runs 8 iterations");
   const double c = phi - v.ys;
   const float cf = static_cast<float>(c), af = static_cast<float>(alpha);
   float dgf = 0.f;
@@ -365,7 +379,7 @@ __device__ __forceinline__ double history_newton(double phi, double alpha,
 
 // radial_rows for the history: the same trial stress, yield check and
 // corrector, with the Newton of history_newton.
-template <typename T>
+template <typename T, int Iters>
 __device__ __forceinline__ void history_rows(T x[7], const T e[6],
                                              const Material<T>& m,
                                              const Voce<T>& v,
@@ -388,7 +402,7 @@ __device__ __forceinline__ void history_rows(T x[7], const T e[6],
   T dg = T(0);
   T scale = T(0);
   if (plastic) {
-    dg = history_newton(phi_tr, alpha_prev, ex0, m, v, vf, f32_limit);
+    dg = history_newton<Iters>(phi_tr, alpha_prev, ex0, m, v, vf, f32_limit);
     const T safe_phi = phi_tr > T(0) ? phi_tr : T(1);
     scale = T(3) * m.mu * dg / safe_phi;
   }
@@ -401,7 +415,7 @@ __device__ __forceinline__ void history_rows(T x[7], const T e[6],
   x[6] = alpha_prev + dg;
 }
 
-template <typename T>
+template <typename T, int Iters>
 __global__ void __launch_bounds__(kHistThreads, kHistMinBlocks)
 j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
                       const T* __restrict__ scalars, T* __restrict__ out,
@@ -430,7 +444,7 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = next[r];
         if (t + 1 < t_steps) load(next, t + 1);
-        history_rows(x, e, m, v, vf, f32_limit);
+        history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
       }
     } else {
       // steps t + 1 and t + 2 in flight while step t is computed: the
@@ -444,12 +458,12 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = even[r];
         if (t + 2 < t_steps) load(even, t + 2);
-        history_rows(x, e, m, v, vf, f32_limit);
+        history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
         if (t + 1 < t_steps) {
 #pragma unroll
           for (int r = 0; r < 6; ++r) e[r] = odd[r];
           if (t + 3 < t_steps) load(odd, t + 3);
-          history_rows(x, e, m, v, vf, f32_limit);
+          history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
         }
       }
     }
@@ -735,13 +749,13 @@ int launch_step(const void* xi, const void* de, const void* scalars, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int Iters = kNewtonIters>
 int launch_history(const void* xi, const void* de_hist, const void* scalars,
                    void* out, long long n, long long t_steps, void* stream) {
   if (n <= 0) return 0;
-  const int grid = balanced_grid(j2_soa_history_kernel<T>, kHistThreads,
+  const int grid = balanced_grid(j2_soa_history_kernel<T, Iters>, kHistThreads,
                                  (n + kHistThreads - 1) / kHistThreads);
-  j2_soa_history_kernel<T>
+  j2_soa_history_kernel<T, Iters>
       <<<grid, kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(xi), static_cast<const T*>(de_hist),
           static_cast<const T*>(scalars), static_cast<T*>(out), n, t_steps);
@@ -803,6 +817,32 @@ int j2_soa_history_f64(const void* xi, const void* de_hist,
                        const void* scalars, void* out, long long n,
                        long long t_steps, void* stream) {
   return launch_history<double>(xi, de_hist, scalars, out, n, t_steps, stream);
+}
+
+// The roofline sweep (R): the f32 history with `iters` Newton iterations,
+// iters in {1, 2, 4, 8, 12}; 8 launches j2_soa_history_f32's kernel.
+int j2_soa_history_f32_iters(const void* xi, const void* de_hist,
+                             const void* scalars, void* out, long long n,
+                             long long t_steps, int iters, void* stream) {
+  switch (iters) {
+    case 1:
+      return launch_history<float, 1>(xi, de_hist, scalars, out, n, t_steps,
+                                      stream);
+    case 2:
+      return launch_history<float, 2>(xi, de_hist, scalars, out, n, t_steps,
+                                      stream);
+    case 4:
+      return launch_history<float, 4>(xi, de_hist, scalars, out, n, t_steps,
+                                      stream);
+    case 8:
+      return launch_history<float, 8>(xi, de_hist, scalars, out, n, t_steps,
+                                      stream);
+    case 12:
+      return launch_history<float, 12>(xi, de_hist, scalars, out, n, t_steps,
+                                       stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int j2_aos_step_f32(const void* xi, const void* grad_u,

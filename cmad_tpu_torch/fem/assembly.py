@@ -4,15 +4,17 @@ Port of the block path of ``cmad_tpu/fem/assembly.py`` (parity:
 reference ``cmad/fem/assembly.py``). A COUPLED block whose evaluators
 carry ``block_R_and_K_and_xi`` / ``block_R`` (``fem/j2_block.py``)
 evaluates the whole element block in one batched call; its element
-residuals scatter into the global vector with ``index_add_`` and its
-element matrices stream out in the ``(block, r, s)`` COO emit order,
-deduplicated by one more ``index_add_`` into the pattern of
-:func:`assembled_coo_pattern`. That function rebuilds the identical
+residuals scatter into the global vector and its element matrices stream
+out in the ``(block, r, s)`` COO emit order, deduplicated into the pattern
+of :func:`assembled_coo_pattern`. That function rebuilds the identical
 with-duplicates ``(rows, cols)`` stream from the same eq-index helper
 the scatter uses, so the pattern and the data cannot drift apart.
 
-On CUDA, ``index_add_`` in float64 adds with atomics, so the order of the
-sums, and with it the last bits of R and K, varies from run to run.
+Both sums, and the gathers of U, go through the segment-sum plans of
+``fem/kernel_arrays.py`` (``ops/segment_sum.py``): each target adds its
+entries in ascending entry order, on the card (the ``segment_sum``
+kernel) as on the CPU (``index_add_``), so R and K are the same bits from
+run to run, and the reverse sweep's transposes are too.
 
 The generic per-IP assembly (nested per-element and per-IP evaluation
 for CLOSED_FORM and non-J2 COUPLED blocks) is not ported yet (ROADMAP
@@ -30,6 +32,7 @@ from cmad_tpu_torch.fem.dof import GlobalDofMap, GlobalFieldLayout
 from cmad_tpu_torch.fem.elements import EntityType
 from cmad_tpu_torch.fem.sparse_solve import CooMatrix
 from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
+from cmad_tpu_torch.ops.segment_sum import segment_gather, segment_sum
 from cmad_tpu_torch.typing import Tensor
 
 if TYPE_CHECKING:
@@ -74,8 +77,12 @@ def element_eq_indices(connectivity_block: np.ndarray,
 
 def gather_element_U(U_global: Tensor, fe_arrays: "FEKernelArrays",
                      block_name: str) -> list[Tensor]:
-    """Per-field (n_elems, n_dofs_per_elem, ncomp) coefficient gathers."""
-    return [U_global[eq] for eq in fe_arrays.u_gather_eq_by_block[block_name]]
+    """Per-field (n_elems, n_dofs_per_elem, ncomp) coefficient gathers;
+    their transpose is the residual scatter's segment sum."""
+    return [segment_gather(U_global, plan).reshape(eq.shape)
+            for eq, plan in zip(fe_arrays.u_gather_eq_by_block[block_name],
+                                fe_arrays.eq_plan_by_block[block_name],
+                                strict=True)]
 
 
 def _block_evaluators(fe_problem, block_name, xi_prev_per_block):
@@ -93,9 +100,9 @@ def _block_evaluators(fe_problem, block_name, xi_prev_per_block):
 
 
 def _scatter_residual(fe_problem, fe_arrays, block_name, R_e: Tensor):
-    eq = fe_arrays.r_scatter_eq_by_block[block_name][0]
-    R = R_e.new_zeros(fe_problem.dof_map.num_total_dofs)
-    return R.index_add_(0, eq.reshape(-1), R_e.reshape(-1))
+    field = fe_problem.field_idx_per_block[0]
+    plan = fe_arrays.eq_plan_by_block[block_name][field]
+    return segment_sum(R_e.reshape(-1), plan)
 
 
 def assemble_element_block(fe_problem: "FEProblem",
@@ -158,10 +165,9 @@ def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
         xi_solved_by_block[block_name] = xi_solved
 
     vals = torch.cat(vals_all)
-    unique = vals.new_zeros(fe_arrays.coo_rows.shape[0]).index_add_(
-        0, fe_arrays.coo_dedup_scatter, vals)
+    unique = segment_sum(vals, fe_arrays.coo_dedup_plan)
     K = CooMatrix(unique, fe_arrays.coo_rows, fe_arrays.coo_cols,
-                  fe_arrays.coo_indptr, fe_problem.dof_map.num_total_dofs)
+                  fe_arrays.coo_row_plan, fe_problem.dof_map.num_total_dofs)
     return K, R, xi_solved_by_block
 
 

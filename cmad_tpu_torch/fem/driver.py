@@ -12,10 +12,11 @@ The per-IP state stays in the component-major carrier layout
 (``fem/xi_carrier.py``) for the whole drive: packed once here, unpacked
 to the AoS ``FEState`` view once per step.
 
-Not ported: the scanned trajectory and its ``steps_per_dispatch``
-windows (ROADMAP queue 1, item 15); ``max_iters_per_dispatch``, which
-answers a remote TPU link's per-execution ceiling, is accepted and
-logged as a no-op.
+Not ported: the scanned trajectory (ROADMAP queue 1, item 15).
+``max_iters_per_dispatch`` and ``steps_per_dispatch``, which answer a
+remote TPU link's per-execution ceiling and its dispatch latency (the
+math is that of one step per dispatch), are accepted and logged as
+no-ops.
 """
 from __future__ import annotations
 
@@ -47,6 +48,19 @@ from cmad_tpu_torch.fem.xi_carrier import (
 )
 
 log = logging.getLogger(__name__)
+
+
+def log_dispatch_knobs(logger, **knobs) -> None:
+    """Log each TPU-link dispatch knob that is set as ignored: here every
+    Newton iteration and every step is its own set of launches, so a
+    window of steps or a cap on one program's iterations changes
+    nothing."""
+    for name, value in knobs.items():
+        if value is not None:
+            logger.info("%s=%s ignored: it batches or bounds device "
+                        "programs on a remote TPU link; each step here is "
+                        "its own set of launches, with the same math",
+                        name, value)
 
 
 def _residual_norm(fe_problem, params_by_block, U, U_prev, xi_prev,
@@ -89,15 +103,8 @@ def fe_quasistatic_drive_stepped(fe_problem: FEProblem,
     if len(t_schedule) < 2:
         raise ValueError(
             f"t_schedule needs >= 2 entries; got {len(t_schedule)}")
-    if steps_per_dispatch is not None:
-        raise NotImplementedError(
-            "steps_per_dispatch (a scan over a window of steps) is not "
-            "ported yet: ROADMAP queue 1, item 15")
-    if max_iters_per_dispatch is not None:
-        log.info("max_iters_per_dispatch=%s ignored: it bounds one device "
-                 "program's duration on a remote TPU link; each Newton "
-                 "iteration here is its own set of launches",
-                 max_iters_per_dispatch)
+    log_dispatch_knobs(log, max_iters_per_dispatch=max_iters_per_dispatch,
+                       steps_per_dispatch=steps_per_dispatch)
     nls = {**default_nonlinear_settings(fe_problem.dtype),
            **(nonlinear_solver_settings or {})}
     lss = {**DEFAULT_LINEAR_SOLVER_SETTINGS,

@@ -3,7 +3,10 @@
 Port of ``cmad_tpu/fem/kernel_arrays.py`` (parity: reference
 ``cmad/fem/kernel_arrays.py``). Mesh-sized index arrays, the geometry
 cache, the assembled COO pattern with its dedup scatter, and the
-embedded-BC sparsity, built once per problem. The JAX package passes
+embedded-BC sparsity, built once per problem, with the segment-sum plans
+(``ops/segment_sum.py``) of every fixed sum of the FE path: the element
+residual scatter (which is also the transpose of the U gather), the COO
+dedup and the COO rows. The JAX package passes
 them as one pytree so that they cross ``jit`` as traced arguments; here
 they are tensors on the device the FE problem runs on, and the Dirichlet
 arrays stay on the host, where the prescribed values are evaluated.
@@ -20,6 +23,11 @@ from cmad_tpu_torch.fem.sparse_solve import (
     EmbeddedSparsity,
     build_embedded_sparsity,
 )
+from cmad_tpu_torch.ops.segment_sum import (
+    SegmentPlan,
+    plan_from_offsets,
+    plan_from_target,
+)
 from cmad_tpu_torch.typing import Tensor
 
 if TYPE_CHECKING:
@@ -32,10 +40,14 @@ class FEKernelArrays:
 
     u_gather_eq_by_block: dict[str, tuple[Tensor, ...]]
     r_scatter_eq_by_block: dict[str, tuple[Tensor, ...]]
+    # per block and field: the plan of the flat eq indices (the residual
+    # scatter; its gather is the U gather)
+    eq_plan_by_block: dict[str, tuple[SegmentPlan, ...]]
     coo_rows: Tensor
     coo_cols: Tensor
-    coo_indptr: Tensor
     coo_dedup_scatter: Tensor
+    coo_dedup_plan: SegmentPlan
+    coo_row_plan: SegmentPlan
     geometry_cache: dict[str, dict]
     embedded_sparsity: EmbeddedSparsity
     prescribed_indices: Tensor
@@ -59,7 +71,8 @@ def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
     def on(a):
         return torch.as_tensor(a, dtype=torch.int64, device=dev)
 
-    u_gather, r_scatter = {}, {}
+    n_dofs = dof_map.num_total_dofs
+    u_gather, r_scatter, eq_plans = {}, {}, {}
     for block in fe_problem.evaluators_by_block:
         conn = mesh.connectivity[mesh.element_blocks[block]]
         n_elems = conn.shape[0]
@@ -73,18 +86,23 @@ def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
             on(element_eq_indices(conn, dof_map,
                                   fe_problem.field_idx_per_block[r]))
             for r in range(num_residuals))
+        eq_plans[block] = tuple(
+            plan_from_target(element_eq_indices(conn, dof_map, fi), n_dofs,
+                             dev)
+            for fi in range(num_fields))
 
     rows, cols, dedup = assembled_coo_pattern(fe_problem)
-    indptr = np.searchsorted(rows, np.arange(dof_map.num_total_dofs + 1),
-                             side="left")
+    indptr = np.searchsorted(rows, np.arange(n_dofs + 1), side="left")
 
     return FEKernelArrays(
         u_gather_eq_by_block=u_gather,
         r_scatter_eq_by_block=r_scatter,
+        eq_plan_by_block=eq_plans,
         coo_rows=on(rows),
         coo_cols=on(cols),
-        coo_indptr=on(indptr),
         coo_dedup_scatter=on(dedup),
+        coo_dedup_plan=plan_from_target(dedup, rows.shape[0], dev),
+        coo_row_plan=plan_from_offsets(indptr, dev),
         geometry_cache=fe_problem.geometry_cache,
         embedded_sparsity=build_embedded_sparsity(fe_problem, rows, cols),
         prescribed_indices=on(dof_map.prescribed_indices),

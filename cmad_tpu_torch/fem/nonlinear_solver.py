@@ -18,13 +18,33 @@ The whole loop runs under ``torch.no_grad()``: the primal records
 nothing for autograd, and the J2 block's ``SoaStep`` runs its forward
 alone, which on CUDA tensors is one ``j2_soa_step`` launch per assembly.
 
-The implicit-function rule of the converged solve (``_fe_newton_solve_ad``
-and ``_fe_solution_at_ad`` in the JAX package) comes with the gradient
-slice (ROADMAP queue 1, item 17); the host-loop driver and the
-tunnel-only chunked Newton are not ported.
+The implicit-function rule of the converged solve is two
+``torch.autograd.Function`` classes, the JAX package's ``custom_jvp`` rules
+``_fe_newton_solve_ad`` and ``_fe_solution_at_ad``:
+
+- :class:`FeNewtonSolve` (:func:`fe_newton_solve_ad`): the forward is the
+  Newton above;
+- :class:`FeSolutionAt` (:func:`fe_solution_at`): the forward is one
+  assembly at a known solution ``U*``, which recovers xi*; ``U*`` is
+  data, its incoming gradient dropped.
+
+Both backwards are :func:`_ift_backward`, the transpose of the JAX
+package's ``_ift_tangents``: the cotangent on U* is ``U_bar + (dxi/dU)^T
+xi_bar``; ``K^T lambda`` = that cotangent is solved with the step's own
+linear-solver arm at its static rtol (K is symmetric); the inputs'
+cotangents are ``-(dr/d(p, U_prev, xi_prev))^T lambda + (dxi/d(.))^T
+xi_bar``, from ``torch.autograd.grad`` of one assembly at U* with grad
+enabled (on the card that assembly launches ``j2_soa_step`` through
+``SoaStep``, whose backward is the closed-form transpose). Every
+parameter tensor is an explicit input of the Function (the leaves of the
+per-block parameter trees), never captured by a closure. The backward is
+first-order: it does not support double backward (the stepped Hessian,
+ROADMAP queue 1, item 17.3). The host-loop driver and the tunnel-only
+chunked Newton are not ported.
 """
 from __future__ import annotations
 
+import time
 from collections.abc import Mapping
 from typing import Any
 
@@ -227,6 +247,226 @@ def _fe_newton_primal(fe_problem, fe_arrays, params_by_block, U_prev,
                   f"rel ||R|| = {norm / R0:.6e}")
     stats["newton_iters"] += i
     return U, xi
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _flatten_tree(tree) -> tuple[list[Tensor], Any]:
+    """The tensor leaves of a nested dict (in its insertion order) and a
+    function that rebuilds the tree from a list of leaves."""
+    leaves: list[Tensor] = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, Tensor):
+            leaves.append(node)
+            return len(leaves) - 1
+        return ("const", node)
+
+    skeleton = walk(tree)
+
+    def rebuild(new_leaves):
+        def fill(node):
+            if isinstance(node, dict):
+                return {k: fill(v) for k, v in node.items()}
+            if isinstance(node, tuple):
+                return node[1]
+            return new_leaves[node]
+        return fill(skeleton)
+
+    return leaves, rebuild
+
+
+class _IftSpec:
+    """The static side of one implicit-function rule: problem, arrays,
+    time, settings, the block order of xi and the parameter-tree
+    rebuilder; ``profile``, when a dict, receives the backward's
+    synchronized host times and its solve's CG iterations."""
+
+    def __init__(self, fe_problem, fe_arrays, t, nls, lss, blocks, rebuild,
+                 n_params, profile=None):
+        self.fe_problem, self.fe_arrays, self.t = fe_problem, fe_arrays, t
+        self.nls, self.lss = nls, lss
+        self.blocks, self.rebuild, self.n_params = blocks, rebuild, n_params
+        self.profile = profile
+
+    def unpack(self, inputs):
+        """(U_prev, {block: xi_prev}, param leaves) from the flat inputs."""
+        U_prev = inputs[0]
+        nb = len(self.blocks)
+        xi_prev = dict(zip(self.blocks, inputs[1:1 + nb], strict=True))
+        return U_prev, xi_prev, list(inputs[1 + nb:1 + nb + self.n_params])
+
+
+def _embedded_r_and_xi(spec: _IftSpec, params_by_block, U, U_prev,
+                       xi_prev_by_block):
+    """(r, K_data, xi_by_block): the embedded residual at ``U`` and the
+    state it solves for."""
+    fe, fa = spec.fe_problem, spec.fe_arrays
+    presc_idx = fa.prescribed_indices
+    pv = torch.as_tensor(
+        fe.dof_map.evaluate_prescribed_values(fa.dbc_arrays, float(spec.t)),
+        dtype=U.dtype, device=U.device)
+    K, R, xi = assemble_global(fe, fa, params_by_block, U, U_prev, spec.t,
+                               xi_prev_by_block=xi_prev_by_block)
+    K_data, K_ii = _embedded_bc_enforce(K, presc_idx)
+    return _embedded_residual(R, K, U, presc_idx, pv, K_ii), K_data, xi
+
+
+def _ift_backward(spec: _IftSpec, U_star: Tensor, inputs, grads, needs):
+    """The transpose of the IFT tangents at ``U_star``: the cotangents of
+    ``inputs = (U_prev, *xi_prev, *param leaves)`` (those ``needs`` marks)
+    from those of ``(U*, *xi*)``."""
+    prof = spec.profile
+    dev = U_star.device
+    g_U, g_xi = grads[0], list(grads[1:])
+    if prof is not None:
+        _sync(dev)
+        t0 = time.perf_counter()
+    with torch.enable_grad():
+        Us = U_star.detach().requires_grad_(True)
+        Up, xps, lvs = spec.unpack([v.detach().requires_grad_(bool(n))
+                                    for v, n in zip(inputs, needs,
+                                                    strict=True)])
+        r, K_data, xi = _embedded_r_and_xi(spec, spec.rebuild(lvs), Us, Up,
+                                           xps)
+        xi_out = [xi[b] for b in spec.blocks]
+    xi_pairs = [(x, g) for x, g in zip(xi_out, g_xi, strict=True)
+                if g is not None and x.requires_grad]
+    cot_U = torch.zeros_like(U_star) if g_U is None else g_U.detach()
+    if xi_pairs:
+        (dU,) = torch.autograd.grad([x for x, _ in xi_pairs], [Us],
+                                    [g for _, g in xi_pairs],
+                                    retain_graph=True, allow_unused=True)
+        if dU is not None:
+            cot_U = cot_U + dU
+    if prof is not None:
+        _sync(dev)
+        t1 = time.perf_counter()
+    solve_stats: dict = {}
+    lam = solve_linear(K_data.detach(), spec.fe_problem, spec.fe_arrays,
+                       cot_U, spec.lss, stats=solve_stats)
+    if prof is not None:
+        _sync(dev)
+        t2 = time.perf_counter()
+    wrt = [Up, *xps.values(), *lvs]
+    idx = [i for i, v in enumerate(wrt) if v.requires_grad]
+    out: list[Tensor | None] = [None] * len(wrt)
+    if idx:
+        got = torch.autograd.grad(
+            [r, *(x for x, _ in xi_pairs)], [wrt[i] for i in idx],
+            [-lam, *(g for _, g in xi_pairs)], allow_unused=True)
+        for i, gi in zip(idx, got, strict=True):
+            out[i] = gi
+    if prof is not None:
+        _sync(dev)
+        t3 = time.perf_counter()
+        prof["assembly_s"] = prof.get("assembly_s", 0.0) + (t1 - t0) \
+            + (t3 - t2)
+        prof["solve_s"] = prof.get("solve_s", 0.0) + (t2 - t1)
+        prof.setdefault("cg_iters", []).extend(solve_stats.get("cg_iters",
+                                                               []))
+        prof["assemblies"] = prof.get("assemblies", 0) + 1
+    return out
+
+
+class FeNewtonSolve(torch.autograd.Function):
+    """``(U*, *xi*) = FeNewtonSolve.apply(spec, U_prev, *xi_prev,
+    *param_leaves)``: the converged Newton step, with the
+    implicit-function rule as its backward (the JAX package's
+    ``_fe_newton_solve_ad``)."""
+
+    @staticmethod
+    def forward(ctx, spec: _IftSpec, *inputs):
+        U_prev, xi_prev, leaves = spec.unpack(inputs)
+        with torch.no_grad():
+            U, xi = _fe_newton_primal(
+                spec.fe_problem, spec.fe_arrays, spec.rebuild(leaves),
+                U_prev, xi_prev, spec.t, spec.nls, spec.lss)
+        ctx.spec = spec
+        ctx.save_for_backward(U, *inputs)
+        return (U, *(xi[b] for b in spec.blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        U_star, *inputs = ctx.saved_tensors
+        return (None, *_ift_backward(ctx.spec, U_star, inputs, grads,
+                                     ctx.needs_input_grad[1:]))
+
+
+class FeSolutionAt(torch.autograd.Function):
+    """``(U*, *xi*) = FeSolutionAt.apply(spec, U_star, U_prev, *xi_prev,
+    *param_leaves)``: the converged step AS IF solved, given its known
+    solution ``U_star`` (one assembly recovers xi*), with the same
+    implicit-function rule as :class:`FeNewtonSolve` (the JAX package's
+    ``_fe_solution_at_ad``). ``U_star`` is data: its gradient is
+    dropped."""
+
+    @staticmethod
+    def forward(ctx, spec: _IftSpec, U_star: Tensor, *inputs):
+        U_prev, xi_prev, leaves = spec.unpack(inputs)
+        with torch.no_grad():
+            _r, _K, xi = _embedded_r_and_xi(spec, spec.rebuild(leaves),
+                                            U_star, U_prev, xi_prev)
+        ctx.spec = spec
+        ctx.save_for_backward(U_star, *inputs)
+        return (U_star.clone(), *(xi[b] for b in spec.blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        U_star, *inputs = ctx.saved_tensors
+        return (None, None, *_ift_backward(ctx.spec, U_star, inputs, grads,
+                                           ctx.needs_input_grad[2:]))
+
+
+def _ift_inputs(fe_problem, params_by_block, U_prev, xi_prev_by_block, t,
+                nonlinear_solver_settings, linear_solver_settings, profile):
+    nls = {**default_nonlinear_settings(fe_problem.dtype),
+           **(nonlinear_solver_settings or {})}
+    lss = {**DEFAULT_LINEAR_SOLVER_SETTINGS,
+           **(linear_solver_settings or {})}
+    blocks = list(fe_problem.evaluators_by_block)
+    leaves, rebuild = _flatten_tree(dict(params_by_block))
+    spec = _IftSpec(fe_problem, fe_problem.kernel_arrays, float(t), nls, lss,
+                    blocks, rebuild, len(leaves), profile)
+    xi_prev = dict(xi_prev_by_block or {})
+    return spec, [U_prev, *(xi_prev[b] for b in blocks), *leaves]
+
+
+def fe_newton_solve_ad(fe_problem: FEProblem,
+                       params_by_block: Mapping[str, dict], U_prev,
+                       xi_prev_by_block, t: float,
+                       nonlinear_solver_settings: dict | None = None,
+                       linear_solver_settings: dict | None = None,
+                       profile: dict | None = None):
+    """:func:`fe_newton_solve` with the implicit-function rule:
+    ``(U*, xi*_by_block)`` differentiable in the parameter tensors,
+    ``U_prev`` and ``xi_prev_by_block`` (carrier layout, every block)."""
+    spec, inputs = _ift_inputs(fe_problem, params_by_block, U_prev,
+                               xi_prev_by_block, t, nonlinear_solver_settings,
+                               linear_solver_settings, profile)
+    U, *xi = FeNewtonSolve.apply(spec, *inputs)
+    return U, dict(zip(spec.blocks, xi, strict=True))
+
+
+def fe_solution_at(fe_problem: FEProblem,
+                   params_by_block: Mapping[str, dict], U_prev,
+                   xi_prev_by_block, t: float, U_star: Tensor,
+                   nonlinear_solver_settings: dict | None = None,
+                   linear_solver_settings: dict | None = None,
+                   profile: dict | None = None):
+    """The step through its stored solution ``U_star``: ``(U*,
+    xi*_by_block)`` with the same derivative as
+    :func:`fe_newton_solve_ad`, at the cost of one assembly forward."""
+    spec, inputs = _ift_inputs(fe_problem, params_by_block, U_prev,
+                               xi_prev_by_block, t, nonlinear_solver_settings,
+                               linear_solver_settings, profile)
+    U, *xi = FeSolutionAt.apply(spec, U_star, *inputs)
+    return U, dict(zip(spec.blocks, xi, strict=True))
 
 
 def fe_newton_solve(fe_problem: FEProblem,

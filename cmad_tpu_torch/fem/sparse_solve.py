@@ -16,10 +16,14 @@ the matching residual puts the dropped (free, prescribed) coupling back
 on the RHS. Static structure lives in :class:`EmbeddedSparsity`, built
 once per problem.
 
-The sparse matrix-vector product is the CSR product of PyTorch
-(``torch.sparse_csr_tensor @ x``: cuSPARSE on the card). The JAX
-package computes it outside any Pallas kernel too; its node-block ELL
-form (``_node_block_ell``, a TPU gather workaround) is not ported.
+Every sum over a fixed pattern here is reproducible
+(``ops/segment_sum.py``): the CSR dedup of the embedded-BC data and the
+assembled diagonal are segment sums over plans built once per problem,
+and the CG's sparse matrix-vector product is ``csr_matvec``, each row
+summed in column order by one thread on the card (PyTorch's CSR product,
+the plain version, on the CPU). The JAX package computes these outside
+any Pallas kernel; its node-block ELL form (``_node_block_ell``, a TPU
+gather workaround) is not ported.
 
 The CG loop is a Python loop: each iteration reads ``||r||^2`` on the
 host to decide whether to stop (one device synchronization per
@@ -31,9 +35,7 @@ equilibration and the mixed-precision solves are not ported yet
 """
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass
-from functools import cached_property
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -41,6 +43,12 @@ import scipy.sparse
 import scipy.sparse.linalg
 import torch
 
+from cmad_tpu_torch.ops.segment_sum import (
+    SegmentPlan,
+    make_csr_matvec,
+    plan_from_sorted,
+    segment_sum,
+)
 from cmad_tpu_torch.typing import Tensor
 
 if TYPE_CHECKING:
@@ -49,34 +57,22 @@ if TYPE_CHECKING:
 _RR_CYCLES = 4  # residual-replacement cycles per CG solve
 
 
-def csr_tensor(indptr: Tensor, cols: Tensor, data: Tensor,
-               n: int) -> Tensor:
-    """The ``(n, n)`` CSR matrix ``(indptr, cols, data)``, built once per
-    matrix so that each product is the sparse product alone."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # "sparse CSR support is beta"
-        return torch.sparse_csr_tensor(indptr, cols, data, (n, n),
-                                       check_invariants=False)
-
-
 @dataclass(frozen=True)
 class CooMatrix:
     """The assembled (deduplicated) global tangent: ``data`` on the
     fixed pattern ``(rows, cols)``, sorted by row then column, with
-    ``indptr`` its CSR row pointer."""
+    ``row_plan`` the segment plan of its rows (its CSR row pointer)."""
 
     data: Tensor
     rows: Tensor
     cols: Tensor
-    indptr: Tensor
+    row_plan: SegmentPlan
     n: int
 
-    @cached_property
-    def csr(self) -> Tensor:
-        return csr_tensor(self.indptr, self.cols, self.data, self.n)
-
     def __matmul__(self, x: Tensor) -> Tensor:
-        return self.csr @ x
+        """``K x``, each row summed in column order; differentiable in
+        ``data`` and ``x``."""
+        return segment_sum(self.data * x[self.cols], self.row_plan)
 
 
 # ----------------------------------------------------------------------
@@ -88,7 +84,8 @@ class EmbeddedSparsity:
 
     ``perm`` selects the kept positions of the runtime embedded-BC data
     buffer (assembled free-free entries + appended prescribed-diagonal
-    entries) in lex (row, col) order; ``segment_ids`` dedups them;
+    entries) in lex (row, col) order; ``segment_ids`` dedups them, and
+    ``dedup_plan`` is that sum's segment plan;
     ``(indptr, col_indices)`` is the unique CSR pattern and ``rows`` the
     row of each unique entry; ``diag_idx`` maps each row to its diagonal
     slot in the unique data. Tensors on the problem's device;
@@ -98,6 +95,7 @@ class EmbeddedSparsity:
 
     perm: Tensor
     segment_ids: Tensor
+    dedup_plan: SegmentPlan
     indptr: Tensor
     col_indices: Tensor
     rows: Tensor
@@ -160,7 +158,10 @@ def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
         return torch.as_tensor(a, dtype=torch.int64, device=dev)
 
     return EmbeddedSparsity(
-        perm=on(perm), segment_ids=on(segment_ids), indptr=on(indptr),
+        perm=on(perm), segment_ids=on(segment_ids),
+        dedup_plan=plan_from_sorted(perm, segment_ids, ucols.shape[0],
+                                    n_assembled + n_presc, dev),
+        indptr=on(indptr),
         col_indices=on(ucols), rows=on(urows), diag_idx=on(diag_idx),
         indptr_np=indptr, col_indices_np=ucols)
 
@@ -170,16 +171,10 @@ def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
 # ----------------------------------------------------------------------
 def _csr_operator(K_data: Tensor, sparsity: EmbeddedSparsity):
     """(unique_data, matvec): dedup the embedded-BC data buffer into the
-    cached CSR and wrap the sparse product."""
-    unique = K_data.new_zeros(sparsity.num_unique).index_add_(
-        0, sparsity.segment_ids, K_data[sparsity.perm])
-    A = csr_tensor(sparsity.indptr, sparsity.col_indices, unique,
-                   sparsity.n)
-
-    def matvec(x: Tensor) -> Tensor:
-        return A @ x
-
-    return unique, matvec
+    cached CSR pattern and wrap the sparse product."""
+    unique = segment_sum(K_data, sparsity.dedup_plan)
+    return unique, make_csr_matvec(sparsity.indptr, sparsity.col_indices,
+                                   unique, sparsity.n)
 
 
 def _embedded_bc_enforce(K: CooMatrix, presc_idx: Tensor):
@@ -190,8 +185,7 @@ def _embedded_bc_enforce(K: CooMatrix, presc_idx: Tensor):
     p = torch.zeros(K.n, dtype=torch.bool, device=K.data.device)
     p[presc_idx] = True
     keep = ~(p[rows] | p[cols])
-    K_ii = K.data.new_zeros(K.n).index_add_(0, rows,
-                                            K.data * (rows == cols))
+    K_ii = segment_sum(K.data * (rows == cols), K.row_plan)
     K_ii_presc = K_ii[presc_idx]
     return torch.cat([K.data * keep, K_ii_presc]), K_ii_presc
 

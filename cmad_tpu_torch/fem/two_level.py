@@ -21,8 +21,13 @@ arm:
   Each application is ``z = D^-1 r + P A_c^-1 P^T r`` (additive
   smoother + coarse correction).
 
-The dense Cholesky is ``torch.linalg.cholesky`` (cuSOLVER on the card);
-the JAX package computes it outside any Pallas kernel too. The mixed
+The restriction ``P^T r`` (every CG iteration) and the coarse matrix's
+per-pair sums are segment sums over plans of the fixed aggregation
+(``ops/segment_sum.py``), reproducible from run to run on the card; the
+coarse pairs are distinct, so their blocks are placed into the dense
+matrix by a plain write. The dense Cholesky is ``torch.linalg.cholesky``
+(cuSOLVER on the card); the JAX package computes it outside any Pallas
+kernel too. The mixed
 u-p pattern, the node-block smoother and the LU (GMRES) arm are not
 ported yet (ROADMAP queue 1, item 22).
 """
@@ -33,6 +38,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from cmad_tpu_torch.ops.segment_sum import (
+    plan_from_sorted,
+    plan_from_target,
+    segment_sum,
+)
 from cmad_tpu_torch.typing import Tensor
 
 # the coarse operator is materialized dense (m, m); past this ceiling
@@ -74,7 +84,10 @@ class TwoLevelPattern:
         return self.width * self.num_aggregates
 
     def on(self, device: torch.device, dtype: torch.dtype) -> dict:
-        """The pattern's arrays as tensors on ``device`` (cached)."""
+        """The pattern's arrays as tensors on ``device`` (cached), with the
+        segment plans of the restriction (``agg_plan``: dofs into
+        aggregates) and of the coarse contraction (``pair_plan``: the
+        sorted fine nonzeros into coarse pairs)."""
         key = (str(device), dtype)
         if key not in self._device_copies:
             def idx(a):
@@ -84,8 +97,13 @@ class TwoLevelPattern:
                 "P_vals": torch.as_tensor(self.P_vals, dtype=dtype,
                                           device=device),
                 "agg_of_dof": idx(self.agg_of_dof),
-                "order": idx(self.coarse_order), "seg": idx(self.coarse_seg),
-                "pI": idx(self.coarse_pI), "pJ": idx(self.coarse_pJ)}
+                "order": idx(self.coarse_order),
+                "pI": idx(self.coarse_pI), "pJ": idx(self.coarse_pJ),
+                "agg_plan": plan_from_target(self.agg_of_dof,
+                                             self.num_aggregates, device),
+                "pair_plan": plan_from_sorted(
+                    None, self.coarse_seg, self.coarse_pI.shape[0],
+                    self.coarse_seg.shape[0], device)}
         return self._device_copies[key]
 
 
@@ -252,20 +270,18 @@ def _apply_P(pattern: TwoLevelPattern, x_c: Tensor, P_vals: Tensor,
     return torch.sum(P_vals * blocks, dim=-1)
 
 
-def _apply_PT(pattern: TwoLevelPattern, r: Tensor, P_vals: Tensor,
-              agg_of_dof: Tensor) -> Tensor:
-    """(n_dofs,) fine -> (m,) coarse."""
-    out = r.new_zeros((pattern.num_aggregates, pattern.width))
-    out.index_add_(0, agg_of_dof, P_vals * r[:, None])
-    return out.reshape(-1)
+def _apply_PT(r: Tensor, P_vals: Tensor, agg_plan) -> Tensor:
+    """(n_dofs,) fine -> (m,) coarse: each aggregate's rows of P, times
+    r, summed in dof order."""
+    return segment_sum(P_vals, agg_plan, scale=r).reshape(-1)
 
 
 def coarse_matrix(pattern: TwoLevelPattern, unique: Tensor, rows: Tensor,
                   cols: Tensor) -> Tensor:
     """A_c = P^T K P from K's deduped COO triplet, dense (m, m): the
     per-nonzero w*w outer products are formed in coarse-pair order (the
-    plan of :func:`attach_coarse_scatter`), reduced per pair, then
-    placed once."""
+    plan of :func:`attach_coarse_scatter`), summed per pair in that
+    order, then placed once (the pairs are distinct)."""
     m, w = pattern.coarse_dim, pattern.width
     if m > DENSE_COARSE_CEILING:
         raise ValueError(
@@ -275,18 +291,14 @@ def coarse_matrix(pattern: TwoLevelPattern, unique: Tensor, rows: Tensor,
             "preconditioner spec to shrink the coarse space")
     t = pattern.on(unique.device, unique.dtype)
     P_vals, order = t["P_vals"], t["order"]
-    k = torch.arange(w, device=unique.device)
     r_o, c_o = rows[order], cols[order]
     block = (unique[order][:, None, None] * P_vals[r_o][:, :, None]
              * P_vals[c_o][:, None, :])
-    n_pairs = int(pattern.coarse_pI.shape[0])
-    S = unique.new_zeros((n_pairs, w, w)).index_add_(0, t["seg"], block)
-    rows_c = (w * t["pI"])[:, None, None] + k[None, :, None]
-    cols_c = (w * t["pJ"])[:, None, None] + k[None, None, :]
-    return unique.new_zeros((m, m)).index_put_(
-        (rows_c.expand(S.shape).reshape(-1),
-         cols_c.expand(S.shape).reshape(-1)),
-        S.reshape(-1), accumulate=True)
+    S = segment_sum(block, t["pair_plan"])
+    A_c = unique.new_zeros((m, m))
+    na = pattern.num_aggregates
+    A_c.view(na, w, na, w)[t["pI"], :, t["pJ"], :] = S
+    return A_c
 
 
 def make_two_level_preconditioner(pattern: TwoLevelPattern,
@@ -301,7 +313,7 @@ def make_two_level_preconditioner(pattern: TwoLevelPattern,
             "the nonsymmetric (LU, GMRES) two-level arm is not ported "
             "yet: ROADMAP queue 1, item 22")
     t = pattern.on(unique.device, unique.dtype)
-    P_vals, agg = t["P_vals"], t["agg_of_dof"]
+    P_vals, agg, agg_plan = t["P_vals"], t["agg_of_dof"], t["agg_plan"]
     A_c = coarse_matrix(pattern, unique, rows, cols)
     # Symmetric diagonal equilibration + null-column deflation:
     # rank-deficient aggregate slots (single-node aggregates, prescribed
@@ -324,14 +336,14 @@ def make_two_level_preconditioner(pattern: TwoLevelPattern,
         A_inv = 0.5 * (A_inv + A_inv.T)  # keep M exactly SPD
 
         def apply(r: Tensor) -> Tensor:
-            rhs = s * _apply_PT(pattern, r, P_vals, agg)
+            rhs = s * _apply_PT(r, P_vals, agg_plan)
             return r / diag + _apply_P(pattern, s * (A_inv @ rhs), P_vals,
                                        agg)
 
         return apply
 
     def apply(r: Tensor) -> Tensor:
-        rhs = s * _apply_PT(pattern, r, P_vals, agg)
+        rhs = s * _apply_PT(r, P_vals, agg_plan)
         z_c = s * torch.cholesky_solve(rhs[:, None], L)[:, 0]
         return r / diag + _apply_P(pattern, z_c, P_vals, agg)
 

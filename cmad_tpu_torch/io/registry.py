@@ -3,9 +3,9 @@
 Port of ``cmad_tpu/io/registry.py`` (parity: reference
 ``cmad/io/registry.py:54-213``). Registration happens at class definition
 via decorators; resolution imports the conventional module of the port
-(``cmad_tpu_torch.models.<name>``) on demand, so importing the io layer
-has no model-import side effects. The QoI registry comes with the
-gradient slice. Names are also discoverable
+(``cmad_tpu_torch.models.<name>``, ``cmad_tpu_torch.qois.<name>``) on
+demand, so importing the io layer has no model-import side effects.
+Names are also discoverable
 without import through the schema fragments, which both packages share
 as data: ``cmad_tpu/io/schemas/<kind>/<name>.yaml``, read by path.
 """
@@ -16,6 +16,7 @@ from collections.abc import Callable
 from pathlib import Path
 
 _MODEL_REGISTRY: dict[str, type] = {}
+_QOI_REGISTRY: dict[str, type] = {}
 _GLOBAL_RESIDUAL_REGISTRY: dict[str, type] = {}
 
 _SCHEMA_DIR = Path(__file__).resolve().parents[2] / "cmad_tpu" / "io" \
@@ -66,6 +67,14 @@ def resolve_model(name: str) -> type:
 
 def registered_model_names() -> list[str]:
     return _registered_names(_MODEL_REGISTRY, "models")
+
+
+def register_qoi(name: str):
+    return _register(_QOI_REGISTRY, name)
+
+
+def resolve_qoi(name: str) -> type:
+    return _resolve(_QOI_REGISTRY, name, "cmad_tpu_torch.qois", "qoi")
 
 
 def register_global_residual(name: str):

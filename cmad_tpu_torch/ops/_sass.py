@@ -34,7 +34,10 @@ from pathlib import Path
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _FUNC = re.compile(r"Function : (\S+)")
 _LABEL = re.compile(r"^\s*\.L_x_(\d+):")
-_KERNEL = re.compile(r"(j2_[a-z]+_[a-z]+)_kernelI([fd])")
+# the kernels' names (each translation unit's anonymous namespace adds a
+# prefix of its own to the mangled name)
+_KERNEL = re.compile(
+    r"(j2_[a-z]+_[a-z]+|segment_sum|csr_matvec)_kernelI([fd])((?:L[ib]\d+E)*)")
 
 FP64 = ("DFMA", "DADD", "DMUL")
 FP32 = ("FFMA", "FADD", "FMUL")
@@ -47,11 +50,15 @@ Insn = tuple[int, str, str]  # address, predicate, instruction
 
 
 def kernel_key(mangled: str) -> str:
-    """``j2_soa_history<double>`` from a mangled kernel name."""
+    """``j2_soa_step<double>``, or with the integer template arguments
+    that follow the type ``j2_soa_history<float, 8>``, from a mangled
+    kernel name."""
     m = _KERNEL.search(mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}>"
+    args = ["double" if m.group(2) == "d" else "float",
+            *re.findall(r"L[ib](\d+)E", m.group(3))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def parse(text: str) -> dict[str, list[Insn]]:

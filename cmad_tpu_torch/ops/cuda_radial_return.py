@@ -14,7 +14,12 @@ Counterpart of ``cmad_tpu/ops/pallas_radial_return.py``. Four kernels
   state ``(N, 7)`` and displacement gradients ``(N, 3, 3)`` (replaces K4
   ``_kernel``);
 - :func:`total_step_cuda` — ``j2_total_step``, one total-form step
-  (replaces K5 ``_kernel_total``).
+  (replaces K5 ``_kernel_total``);
+- :func:`soa_history_iters_cuda` — ``j2_soa_history`` in f32 with 1, 2,
+  4, 8 or 12 Newton iterations (replaces the roofline experiment's kernel
+  R, ``kernel`` in ``_make_hist_call``,
+  ``benchmarks/local_kernels/roofline_experiment.py:40``; the sweeps are
+  ``ops/roofline.py``).
 
 The plain versions are ``ops/j2_radial_return.soa_step_scalars`` (and a
 loop of it), ``make_j2_radial_return`` and ``make_j2_radial_return_total``.
@@ -39,7 +44,9 @@ j2_soa_step_launches = 0
 j2_soa_history_launches = 0
 j2_aos_step_launches = 0
 j2_total_step_launches = 0
+j2_soa_history_iters_launches = 0
 
+ROOFLINE_ITERS = (1, 2, 4, 8, 12)  # the instances of the f32 history
 _SUB = 8  # rows per component in the wide layout
 _DTYPES = (torch.float32, torch.float64)
 
@@ -47,17 +54,20 @@ _DTYPES = (torch.float32, torch.float64)
 def reset_launch_counts() -> None:
     global j2_soa_step_launches, j2_soa_history_launches
     global j2_aos_step_launches, j2_total_step_launches
+    global j2_soa_history_iters_launches
     j2_soa_step_launches = 0
     j2_soa_history_launches = 0
     j2_aos_step_launches = 0
     j2_total_step_launches = 0
+    j2_soa_history_iters_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {"j2_soa_step": j2_soa_step_launches,
             "j2_soa_history": j2_soa_history_launches,
             "j2_aos_step": j2_aos_step_launches,
-            "j2_total_step": j2_total_step_launches}
+            "j2_total_step": j2_total_step_launches,
+            "j2_soa_history_iters": j2_soa_history_iters_launches}
 
 
 def on_cuda(t: Tensor) -> bool:
@@ -163,6 +173,43 @@ def soa_history_cuda(xi_soa: Tensor, de_hist: Tensor,
                 out.data_ptr(), n, t_steps, stream)
     _raise_on_error(lib, rc, "j2_soa_history")
     j2_soa_history_launches += 1
+    return out
+
+
+def soa_history_iters_cuda(xi_soa: Tensor, de_hist: Tensor,
+                           scalars: Tensor, newton_iters: int) -> Tensor:
+    """:func:`soa_history_cuda` in float32 with ``newton_iters`` (1, 2,
+    4, 8 or 12) Newton iterations on the plastic multiplier, the last one
+    with the exact divide; 8 launches the kernel of the f32 history.
+    Semantics of ``newton_iters`` chained
+    ``j2_radial_return.soa_step_scalars(..., newton_iters=n)`` steps."""
+    from cmad_tpu_torch.ops._build import load_library
+
+    global j2_soa_history_iters_launches
+    if newton_iters not in ROOFLINE_ITERS:
+        raise ValueError(f"newton_iters must be one of {ROOFLINE_ITERS}; "
+                         f"got {newton_iters}")
+    n = _check_state(xi_soa)
+    if xi_soa.dtype != torch.float32:
+        raise TypeError(f"xi_soa: the iteration sweep is float32; got "
+                        f"{xi_soa.dtype}")
+    if not isinstance(de_hist, Tensor) or de_hist.dim() != 3:
+        raise ValueError(f"de_hist: expected shape (T, 8, {n}); "
+                         f"got {getattr(de_hist, 'shape', None)}")
+    t_steps = int(de_hist.shape[0])
+    _check("de_hist", de_hist, (t_steps, 8, n), xi_soa)
+    _check("scalars", scalars, (5,), xi_soa)
+    lib = load_library()
+    out = torch.empty_like(xi_soa)
+    if n == 0:
+        return out
+    with torch.cuda.device(xi_soa.device):
+        stream = torch.cuda.current_stream(xi_soa.device).cuda_stream
+        rc = lib.j2_soa_history_f32_iters(
+            xi_soa.data_ptr(), de_hist.data_ptr(), scalars.data_ptr(),
+            out.data_ptr(), n, t_steps, newton_iters, stream)
+    _raise_on_error(lib, rc, "j2_soa_history (iterations)")
+    j2_soa_history_iters_launches += 1
     return out
 
 

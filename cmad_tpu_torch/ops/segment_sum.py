@@ -1,0 +1,336 @@
+"""Reproducible sums over fixed patterns: the segment sum and the CSR
+product, with their plans, plain versions and CUDA wrappers.
+
+The FE path sums many values into fewer slots over patterns that never
+change within a problem: element residuals into the global vector, the
+assembly's COO entries into the deduplicated pattern, fine dofs into
+two-level aggregates. ``index_add_`` does it on the CPU in ascending entry
+order, one thread; on the card it adds float64 with atomics in an order
+that changes from run to run, so two runs of the same FE drive rounded
+differently and took different Newton paths. A :class:`SegmentPlan`,
+built once per pattern, sorts the entries by target (stably) and records
+where each target's segment starts (CSR-like offsets); the CUDA kernel
+``segment_sum`` (``csrc/segment_sum.cu``) then sums each segment in
+ascending entry order, starting from 0, in one thread: the CPU's order, so
+the card's sum equals the CPU's bit for bit, and run after run.
+
+- :func:`segment_sum` — ``out[s] = sum of vals[e] (* scale[e]) over the
+  entries e of segment s``; the plain version is ``index_add_``. It is
+  differentiable in ``vals``: the backward is the gather
+  ``grad_out[segment of entry]``.
+- :func:`segment_gather` — ``x[segment of entry]``, whose backward is the
+  segment sum (so the FE gathers of U transpose reproducibly too).
+- :func:`csr_matvec` — ``y = A x`` for a CSR matrix, each row summed in
+  column order by one thread (CUDA kernel ``csr_matvec``); the plain
+  version is PyTorch's CSR product.
+
+The wrappers take the plain version only for a CPU tensor; a CUDA tensor
+launches the kernel or raises. Each adds one to its launch count where it
+launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cmad_tpu_torch.typing import Tensor
+
+segment_sum_launches = 0
+csr_matvec_launches = 0
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def reset_launch_counts() -> None:
+    global segment_sum_launches, csr_matvec_launches
+    segment_sum_launches = 0
+    csr_matvec_launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"segment_sum": segment_sum_launches,
+            "csr_matvec": csr_matvec_launches}
+
+
+@dataclass(frozen=True)
+class SegmentPlan:
+    """A fixed sum of ``n_entries`` values into ``n_segments`` slots.
+
+    ``perm`` lists the entries in segment order (None: already in it),
+    ``offsets`` (n_segments + 1,) where each segment starts in that order,
+    ``sorted_target`` the segment of each position of that order, and
+    ``target`` (n_entries,) the segment of each entry, or None when some
+    entries belong to no segment (the plan sums only those ``perm``
+    lists)."""
+
+    offsets: Tensor
+    perm: Tensor | None
+    sorted_target: Tensor
+    target: Tensor | None
+    n_segments: int
+    n_entries: int
+
+
+def _index(a, device) -> Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def plan_from_target(target, n_segments: int, device) -> SegmentPlan:
+    """The plan that sums entry ``e`` into segment ``target[e]``."""
+    target = np.asarray(target, dtype=np.int64).ravel()
+    order = np.argsort(target, kind="stable")
+    sorted_target = target[order]
+    in_order = bool(np.all(order == np.arange(target.shape[0])))
+    return plan_from_sorted(None if in_order else order, sorted_target,
+                            n_segments, target.shape[0], device,
+                            target=target)
+
+
+def plan_from_sorted(perm, sorted_target, n_segments: int, n_entries: int,
+                     device, target=None) -> SegmentPlan:
+    """The plan that sums entry ``perm[i]`` (``i`` if ``perm`` is None)
+    into segment ``sorted_target[i]``, with ``sorted_target``
+    nondecreasing; entries that ``perm`` leaves out belong to no
+    segment."""
+    sorted_target = np.asarray(sorted_target, dtype=np.int64).ravel()
+    if sorted_target.size and (np.any(np.diff(sorted_target) < 0)
+                               or sorted_target[0] < 0
+                               or sorted_target[-1] >= n_segments):
+        raise ValueError("sorted_target must be nondecreasing in "
+                         f"[0, {n_segments})")
+    offsets = np.searchsorted(sorted_target, np.arange(n_segments + 1),
+                              side="left")
+    if target is None and perm is None \
+            and sorted_target.shape[0] == n_entries:
+        target = sorted_target
+    return SegmentPlan(
+        offsets=_index(offsets, device),
+        perm=None if perm is None else _index(perm, device),
+        sorted_target=_index(sorted_target, device),
+        target=None if target is None else _index(target, device),
+        n_segments=int(n_segments), n_entries=int(n_entries))
+
+
+def plan_from_offsets(offsets, device) -> SegmentPlan:
+    """The plan of entries already in segment order, segment ``s`` being
+    ``[offsets[s], offsets[s + 1])`` (a CSR row pointer)."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    n = offsets.shape[0] - 1
+    sorted_target = np.repeat(np.arange(n, dtype=np.int64),
+                              np.diff(offsets))
+    return plan_from_sorted(None, sorted_target, n, int(offsets[-1]),
+                            device)
+
+
+def _check(name: str, t: Tensor, like: Tensor) -> None:
+    if t.device != like.device:
+        raise ValueError(f"{name}: on {t.device}, expected {like.device}")
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype must be float32 or float64; got "
+                        f"{t.dtype}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name}: {t.dtype} does not match {like.dtype}")
+
+
+def _segment_sum_plain(vals: Tensor, plan: SegmentPlan,
+                       scale: Tensor | None) -> Tensor:
+    """``index_add_`` of the plan's entries, in ascending entry order."""
+    out = vals.new_zeros((plan.n_segments, *vals.shape[1:]))
+    if plan.target is not None:
+        src = vals if scale is None else vals * _column(scale, vals)
+        return out.index_add_(0, plan.target, src)
+    src = vals[plan.perm]
+    if scale is not None:
+        src = src * _column(scale[plan.perm], src)
+    return out.index_add_(0, plan.sorted_target, src)
+
+
+def segment_sum_in_plan_order(vals: Tensor, plan: SegmentPlan,
+                              scale: Tensor | None = None) -> Tensor:
+    """The kernel's order in plain PyTorch: position k of every segment
+    at once, k = 0, 1, ..., each added to its segment's sum from 0 (on
+    the CPU, where the tests hold it to ``index_add_`` bit for bit)."""
+    lengths = plan.offsets[1:] - plan.offsets[:-1]
+    starts = plan.offsets[:-1]
+    out = vals.new_zeros((plan.n_segments, *vals.shape[1:]))
+    for k in range(int(lengths.max()) if plan.n_segments else 0):
+        live = lengths > k
+        pos = starts[live] + k
+        e = pos if plan.perm is None else plan.perm[pos]
+        v = vals[e]
+        if scale is not None:
+            v = v * _column(scale[e], v)
+        out[live] = out[live] + v
+    return out
+
+
+def _column(scale: Tensor, like: Tensor) -> Tensor:
+    return scale.reshape(-1, *([1] * (like.dim() - 1)))
+
+
+def _segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
+                      scale: Tensor | None) -> Tensor:
+    from cmad_tpu_torch.ops._build import load_library
+
+    global segment_sum_launches
+    if vals.device.type != "cuda":
+        raise ValueError(f"segment_sum: the CUDA kernel takes CUDA tensors; "
+                         f"got device {vals.device}")
+    _check("vals", vals, vals)
+    if not vals.is_contiguous():
+        raise ValueError("segment_sum: vals must be contiguous")
+    for name, idx in (("offsets", plan.offsets), ("perm", plan.perm)):
+        if idx is not None and (idx.device != vals.device
+                                or idx.dtype != torch.int64):
+            raise ValueError(f"segment_sum: plan.{name} must be int64 on "
+                             f"{vals.device}")
+    if scale is not None:
+        _check("scale", scale, vals)
+        if tuple(scale.shape) != (plan.n_entries,) \
+                or not scale.is_contiguous():
+            raise ValueError(f"segment_sum: scale must be a contiguous "
+                             f"({plan.n_entries},) vector")
+    width = int(np.prod(vals.shape[1:], dtype=np.int64))
+    out = vals.new_empty((plan.n_segments, *vals.shape[1:]))
+    lib = load_library()
+    fn = lib.segment_sum_f64 if vals.dtype == torch.float64 \
+        else lib.segment_sum_f32
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        rc = fn(vals.data_ptr(),
+                None if plan.perm is None else plan.perm.data_ptr(),
+                plan.offsets.data_ptr(),
+                None if scale is None else scale.data_ptr(),
+                out.data_ptr(), plan.n_segments, width, stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum launch failed: CUDA error {rc} "
+                           f"({lib.j2_error_string(rc).decode()})")
+    segment_sum_launches += 1
+    return out
+
+
+def _segment_sum_raw(vals: Tensor, plan: SegmentPlan,
+                     scale: Tensor | None) -> Tensor:
+    if vals.shape[0] != plan.n_entries:
+        raise ValueError(f"segment_sum: {vals.shape[0]} entries, the plan "
+                         f"has {plan.n_entries}")
+    if vals.device.type == "cuda":
+        return _segment_sum_cuda(vals, plan, scale)
+    if vals.device.type == "cpu":
+        return _segment_sum_plain(vals, plan, scale)
+    raise ValueError(f"segment_sum: no kernel for device {vals.device}")
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals: Tensor, plan: SegmentPlan) -> Tensor:
+        ctx.plan = plan
+        return _segment_sum_raw(vals, plan, None)
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        return _gather(grad_out, ctx.plan), None
+
+
+def _gather(x: Tensor, plan: SegmentPlan) -> Tensor:
+    """``x[segment of entry]`` over every entry (zero where an entry
+    belongs to no segment)."""
+    if plan.target is not None:
+        return x[plan.target]
+    out = x.new_zeros((plan.n_entries, *x.shape[1:]))
+    out[plan.perm] = x[plan.sorted_target]
+    return out
+
+
+class _SegmentGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: Tensor, plan: SegmentPlan) -> Tensor:
+        ctx.plan = plan
+        return _gather(x, plan)
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        return _segment_sum_raw(grad_out.contiguous(), ctx.plan, None), None
+
+
+def segment_sum(vals: Tensor, plan: SegmentPlan,
+                scale: Tensor | None = None) -> Tensor:
+    """``(n_segments, ...)`` sums of ``vals`` (``(n_entries, ...)``) over
+    ``plan``, each entry times ``scale[e]`` when given; every segment
+    summed in ascending entry order from 0. Differentiable in ``vals``
+    (not in ``scale``)."""
+    if scale is not None and scale.requires_grad:
+        raise RuntimeError("segment_sum is not differentiable in scale")
+    if scale is None and vals.requires_grad and torch.is_grad_enabled():
+        return _SegmentSum.apply(vals, plan)
+    return _segment_sum_raw(vals.contiguous() if vals.device.type == "cuda"
+                            else vals, plan, scale)
+
+
+def segment_gather(x: Tensor, plan: SegmentPlan) -> Tensor:
+    """``x[target]``: the value of each entry's segment; the backward is
+    :func:`segment_sum` over ``plan``."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SegmentGather.apply(x, plan)
+    return _gather(x, plan)
+
+
+def csr_tensor(indptr: Tensor, cols: Tensor, data: Tensor,
+               n: int) -> Tensor:
+    """The ``(n, n)`` PyTorch CSR matrix ``(indptr, cols, data)``: the
+    plain version of :func:`csr_matvec`."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is beta"
+        return torch.sparse_csr_tensor(indptr, cols, data, (n, n),
+                                       check_invariants=False)
+
+
+def csr_matvec_cuda(indptr: Tensor, cols: Tensor, data: Tensor,
+                    x: Tensor) -> Tensor:
+    """``y = A x`` on the card, each row summed in column order from 0
+    by one thread (``csr_matvec``)."""
+    from cmad_tpu_torch.ops._build import load_library
+
+    global csr_matvec_launches
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_matvec: the CUDA kernel takes CUDA tensors; "
+                         f"got device {x.device}")
+    _check("data", data, x)
+    n = int(indptr.shape[0]) - 1
+    if tuple(x.shape) != (n,) or not (x.is_contiguous()
+                                      and data.is_contiguous()):
+        raise ValueError(f"csr_matvec: x must be a contiguous ({n},) "
+                         f"vector and data contiguous")
+    for name, idx in (("indptr", indptr), ("cols", cols)):
+        if idx.device != x.device or idx.dtype != torch.int64:
+            raise ValueError(f"csr_matvec: {name} must be int64 on "
+                             f"{x.device}")
+    y = torch.empty_like(x)
+    lib = load_library()
+    fn = lib.csr_matvec_f64 if x.dtype == torch.float64 \
+        else lib.csr_matvec_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(indptr.data_ptr(), cols.data_ptr(), data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"csr_matvec launch failed: CUDA error {rc} "
+                           f"({lib.j2_error_string(rc).decode()})")
+    csr_matvec_launches += 1
+    return y
+
+
+def make_csr_matvec(indptr: Tensor, cols: Tensor, data: Tensor, n: int):
+    """``matvec(x) = A x`` for the fixed CSR matrix ``(indptr, cols,
+    data)``: the kernel on the card, PyTorch's CSR product (built once
+    here) on the CPU. Not differentiable."""
+    if data.device.type == "cuda":
+        data = data.detach().contiguous()
+        return lambda x: csr_matvec_cuda(indptr, cols, data, x)
+    if data.device.type != "cpu":
+        raise ValueError(f"csr_matvec: no kernel for device {data.device}")
+    A = csr_tensor(indptr, cols, data.detach(), n)
+    return lambda x: A @ x

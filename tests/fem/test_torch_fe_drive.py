@@ -16,6 +16,7 @@ prescribed dofs) and the Newton path, not the converged answer.
 """
 from __future__ import annotations
 
+import logging
 import warnings
 
 import numpy as np
@@ -121,15 +122,13 @@ def test_iteration_cap_warns():
     assert log[0]["final_residual"] > 1e-6
 
 
-def test_arms_not_ported_raise():
+def test_arms_not_ported_raise(caplog):
     deck = notch_deck(num_steps=1)
     deck["residuals"]["global residual"]["driver"] = "scan"
     with pytest.raises(NotImplementedError, match="item 15"):
         run_primal_fe(port_bundle(deck))
     bt = port_bundle(notch_deck(num_steps=1))
     fe = bt.fe_problem
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fe_quasistatic_drive_stepped(fe, [0.0, 1.0], steps_per_dispatch=2)
     K = torch.ones(fe.embedded_sparsity.perm.shape[0], dtype=torch.float64)
     b = torch.ones(fe.dof_map.num_total_dofs, dtype=torch.float64)
     for settings, item in (({"type": "gmres", "rtol": 1e-8}, "item 22"),
@@ -140,11 +139,16 @@ def test_arms_not_ported_raise():
                             "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             solve_linear(K, fe, fe.kernel_arrays, b, settings)
-    # the tunnel-only dispatch bound is accepted and does nothing
-    with warnings.catch_warnings():
+    # the tunnel-only dispatch knobs are accepted, logged and do nothing
+    with warnings.catch_warnings(), caplog.at_level(
+            logging.INFO, logger="cmad_tpu_torch.fem.driver"):
         warnings.simplefilter("error")
         a = fe_quasistatic_drive_stepped(fe, [0.0, 0.5],
                                          nonlinear_settings(bt),
-                                         max_iters_per_dispatch=1)
+                                         max_iters_per_dispatch=1,
+                                         steps_per_dispatch=2)
+    logged = caplog.text
+    assert "max_iters_per_dispatch=1 ignored" in logged
+    assert "steps_per_dispatch=2 ignored" in logged
     b_ = fe_quasistatic_drive_stepped(fe, [0.0, 0.5], nonlinear_settings(bt))
     np.testing.assert_array_equal(a[0].U_at(1), b_[0].U_at(1))

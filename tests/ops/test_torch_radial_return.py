@@ -256,12 +256,13 @@ def test_library_path_keys_every_csrc_file(tmp_path):
     assert mod.library_path() not in (first, with_header)
     header.unlink()
     assert mod.library_path() == first
+    units = sorted(p.name for p in csrc.glob("*.cu"))
+    assert [p.name for p in mod.sources()] == units
     cu = sorted(csrc.glob("*.cu"))[0]
     cu.write_text(cu.read_text() + "\n")
     assert mod.library_path() != first
     (csrc / "second.cu").write_text("// another unit\n")
-    assert [p.name for p in mod.sources()] == sorted(
-        [cu.name, "second.cu"])
+    assert [p.name for p in mod.sources()] == sorted(units + ["second.cu"])
 
 
 _SASS = """

@@ -14,6 +14,18 @@ holds the port on the card against these numbers.
 
 At 47,628 tets the drive takes about five and a half minutes on eight CPU
 cores.
+
+``--gradient`` adds the gradient of the notch calibration
+(``benchmarks/notch_hosford/calibrate_scale.py``): the drive above at the
+deck's Y = 2.0 is the truth; then, with Y active at 2.6 under the log
+transform about 2.0 and ``fe_displacement_match`` against the truth
+(weight ``--weight``, the records' 1e6), J and its gradient from
+``cli/fe_common.build_fe_stepped_vg`` (the stepped adjoint). The gradient
+is with respect to the canonical parameter c (Y = 2.0 exp(c)); dJ/dY =
+dJ/dc / Y.
+
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.015.exo --max-iters 50 --gradient
 """
 from __future__ import annotations
 
@@ -33,6 +45,10 @@ def main() -> int:
                     help="a mesh file of examples/meshes")
     ap.add_argument("--max-iters", type=int, default=15,
                     help="the global Newton's iteration cap (the deck: 15)")
+    ap.add_argument("--gradient", action="store_true",
+                    help="also J and dJ/dY at Y = 2.6 against the truth")
+    ap.add_argument("--weight", type=float, default=1.0e6,
+                    help="the QoI's weight (calibrate_scale.py: 1e6)")
     args = ap.parse_args()
 
     sys.path.insert(0, str(REPO))
@@ -69,7 +85,11 @@ def main() -> int:
         linear_solver_settings=bundle.resolved["linear solver"])
     drive_s = time.perf_counter() - t0
     steps = range(1, len(state.U_history))
+    grad = {}
+    if args.gradient:
+        grad = gradient_reference(deck, state, args.weight)
     print(json.dumps({
+        **grad,
         "mesh": args.mesh, "max_iters": args.max_iters,
         "n_elems": int(fe.mesh.connectivity.shape[0]),
         "n_nodes": int(fe.mesh.nodes.shape[0]),
@@ -80,6 +100,41 @@ def main() -> int:
         "log": log, "drive_s": drive_s, "jax": jax.__version__},
         indent=1))
     return 0
+
+
+def gradient_reference(deck: dict, truth, weight: float) -> dict:
+    """J and its gradient at Y = 2.6 against the displacements of
+    ``truth`` (the drive at Y = 2.0), from cmad_tpu's stepped adjoint."""
+    import copy
+
+    import numpy as np
+    import yaml
+
+    from cmad_tpu.cli.fe_common import (
+        build_fe_problem_from_deck,
+        build_fe_stepped_vg,
+    )
+
+    deck = copy.deepcopy(deck)
+    deck["residuals"]["local residual"]["materials"]["block_1"]["plastic"][
+        "flow stress"]["initial yield"] = {
+            "Y": {"value": 2.6, "active": True, "transform": {"log": 2.0}}}
+    data = np.stack(truth.U_history).reshape(len(truth.U_history), -1, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "u_data.npy", data)
+        deck["qoi"] = {"name": "fe_displacement_match",
+                       "data_file": str(Path(tmp) / "u_data.npy"),
+                       "weight": weight}
+        path = Path(tmp) / "deck.yaml"
+        path.write_text(yaml.safe_dump(deck, sort_keys=False))
+        bundle = build_fe_problem_from_deck(path, "gradient")
+    p0, state_init, ts, vg = build_fe_stepped_vg(bundle)
+    t0 = time.perf_counter()
+    J, g = vg(p0, state_init, ts)
+    return {"Y": 2.6, "Y_truth": 2.0, "weight": weight, "J": float(J),
+            "dJ_dc": float(g[0]), "dJ_dY": float(g[0]) / 2.6,
+            "canonical_c": float(np.asarray(p0)[0]),
+            "gradient_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":

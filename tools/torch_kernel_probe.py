@@ -28,6 +28,15 @@ from the root of a checkout:
     python3 tools/torch_kernel_probe.py --src parent=build/parent/cmad_tpu_torch/csrc \\
         --src change=cmad_tpu_torch/csrc --out build/probe
 
+``--roofline`` runs only the roofline experiment (``ops/roofline.py``,
+the port of ``benchmarks/local_kernels/roofline_experiment.py``): the f32
+history at 2,097,152 points x 16 steps with 1, 2, 4, 8 and 12 Newton
+iterations at 8 steps per launch, and with 1, 2, 4, 8 and 16 steps per
+launch at 8 iterations, each row against the plain drive, on this
+checkout's library:
+
+    python3 tools/torch_kernel_probe.py --roofline
+
 ``--variant NAME=BASE:OLD->NEW|...`` adds a copy of library BASE's
 sources with each OLD text (which must occur once) replaced by NEW, to
 time a tuning constant beside the source it comes from. ``--sass FILE``
@@ -153,8 +162,8 @@ def build(name: str, csrc: Path, out: Path) -> subprocess.Popen:
     lib_dir.mkdir(parents=True, exist_ok=True)
     sources = sorted(str(p) for p in Path(csrc).glob("*.cu"))
     return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_dir / "lib.so"),
-         *sources], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+         str(lib_dir / "lib.so"), *sources], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
 
 
@@ -176,6 +185,29 @@ def load(path: Path) -> ctypes.CDLL:
 # timing
 
 
+def roofline(args) -> int:
+    """The roofline sweeps on this checkout's library, rows to stdout and
+    ``<out>/roofline.json``."""
+    import torch
+
+    from cmad_tpu_torch.ops import roofline as rl
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    xi0, de, sc = rl.roofline_data(device=torch.device("cuda", 0))
+    rows = rl.sweep(xi0, de, sc, reps=args.reps, rounds=args.rounds,
+                    bound=1e-4)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "roofline.json").write_text(json.dumps(
+        {"card": card, "n": rl.N, "t": rl.T, "rows": rows}, indent=1))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", action="append", default=[],
@@ -191,6 +223,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sass", help="parse this cuobjdump -sass listing "
                                    "and exit")
+    ap.add_argument("--roofline", action="store_true",
+                    help="run the roofline sweeps (ops/roofline.py) on "
+                         "this checkout's library and exit")
     args = ap.parse_args()
 
     if args.sass:
@@ -203,6 +238,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_probe: no CUDA device")
+    if args.roofline:
+        return roofline(args)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     srcs = dict(s.split("=", 1) for s in (args.src or
@@ -313,8 +350,10 @@ def main() -> int:
         plastic = plastic_fn()
         bounds = {}
         for nm in names:
-            c = report["libs"][nm]["sass"][
-                f"{kernel}<{'double' if dt == torch.float64 else 'float'}>"]
+            sass = report["libs"][nm]["sass"]
+            key = f"{kernel}<{'double' if dt == torch.float64 else 'float'}"
+            # the history kernel carries its Newton's iteration count
+            c = sass.get(f"{key}>") or sass[f"{key}, 8>"]
             t_ops = max((c["elastic"][k] * updates + c["plastic"][k] * plastic)
                         / peak for k, peak in (("fp64", 34e12),
                                                ("fp32", 67e12))) * 1e3
