@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels of ``cmad_tpu_torch/csrc`` (one nvcc per
 source, started together, into ``build/cmad_tpu_torch/``): the four J2
 return maps, their f32 history with 1-12 Newton iterations (the roofline
-experiment's kernel R), and the reproducible sums ``segment_sum`` and
+experiment's kernel R), and the reproducible sums ``segment_sum`` (one
+thread per output), ``segment_sum_block`` (one block per segment),
+``coarse_pair_sum`` (the two-level coarse pairs' products and sums) and
 ``csr_matvec``. It checks each against its plain PyTorch version
 on the card, drives the port's public entry points at the headline sizes
 and checks the answers against the plain path and against the yield
@@ -40,10 +42,13 @@ the built library's SASS counts them). The paths driven:
   FE shape (on the device, from a CUDA graph), the two-level setup and
   one CG solve;
 - determinism: the 47,628-tet drive a second time in the same process,
-  bit for bit the same U history, Newton path and CG counts; then
-  ``segment_sum`` on the assembly's dedup plan against ``index_add_`` on
-  the CPU bit for bit, and ``csr_matvec`` against PyTorch's CSR product,
-  each timed on the device beside the PyTorch call it replaces;
+  bit for bit the same U history, Newton path and CG counts; then the
+  segment sum on each of the FE path's six plans, on the kernel the plan
+  picks, against ``index_add_`` on the CPU bit for bit (the plans of long
+  segments through the thread path too), ``csr_matvec`` against PyTorch's
+  CSR product, and ``coarse_pair_sum`` on the step's first K against
+  ``coarse_matrix`` on the CPU bit for bit, each timed on the device
+  beside the PyTorch calls it replaces;
 - the FE J2 stepped gradient of the notch calibration
   (``benchmarks/notch_hosford/calibrate_scale.py``: a truth at Y = 2.0
   from the port's primal, then J and dJ/dc at Y = 2.6 under the log
@@ -1120,7 +1125,10 @@ def main() -> int:
         _embedded_bc_enforce,
         _embedded_residual,
     )
-    from cmad_tpu_torch.fem.two_level import make_two_level_preconditioner
+    from cmad_tpu_torch.fem.two_level import (
+        coarse_matrix,
+        make_two_level_preconditioner,
+    )
     from cmad_tpu_torch.fem.xi_carrier import pack_xi_by_block
 
     def reset_counts():
@@ -1148,7 +1156,8 @@ def main() -> int:
                    f"(each Newton start, each probe, each step's residual "
                    f"pair) {implied}; all kernels {k1}")
         if k1["j2_soa_step"] != implied or implied < len(stats) \
-                or not k1["segment_sum"] or not k1["csr_matvec"]:
+                or not all(k1[k] for k in ("segment_sum", "segment_sum_block",
+                                           "coarse_pair_sum", "csr_matvec")):
             raise RuntimeError(f"{phase}: launches {k1}, assemblies "
                                f"{implied}")
         nls = nonlinear_settings(bundle)
@@ -1351,9 +1360,12 @@ def main() -> int:
         raise RuntimeError("determinism: two drives of the notch differ")
     del state2
     # segment_sum on every plan of the FE path at this size against its
-    # plain version, index_add_ on the CPU, bit for bit; each timed on the
-    # device (CUDA graph) beside index_add_ on the card. The kernels line
-    # reports the assembly's dedup plan (47,628 x 144 COO entries)
+    # plain version, index_add_ on the CPU, bit for bit, on the kernel the
+    # plan picks (segment_path); a plan of long segments also through the
+    # thread path, bit for bit too; each timed on the device (CUDA graph)
+    # beside index_add_ on the card. The kernels line reports the
+    # assembly's dedup plan (segment_sum, 47,628 x 144 COO entries) and the
+    # two-level restriction (segment_sum_block, every CG iteration)
     ka = fe.kernel_arrays
     two = get_two_level_pattern(fe).on(dev, torch.float64)
     plans = {"residual scatter": (ka.eq_plan_by_block["block_1"][0], ()),
@@ -1368,6 +1380,8 @@ def main() -> int:
         scale = (torch.randn(plan.n_entries, generator=gen, device=dev,
                              dtype=torch.float64)
                  if label == "two-level restriction" else None)
+        w = int(np.prod(width, dtype=np.int64))
+        path = segsum.segment_path(plan, w)
         seg_out = segsum.segment_sum(vals, plan, scale)
         if plan.target is None:      # entries outside every segment
             idx, src = plan.sorted_target, vals[plan.perm]
@@ -1384,7 +1398,6 @@ def main() -> int:
             0, idx, src), sync)
         # the entries the plan sums (the CSR dedup leaves the prescribed
         # rows and columns out), each value, index and output once
-        w = int(np.prod(width, dtype=np.int64))
         summed = int(plan.sorted_target.shape[0])
         seg_bytes = 8 * (summed * (w + (plan.perm is not None)
                                    + (scale is not None))
@@ -1392,18 +1405,36 @@ def main() -> int:
         seg_bound = max(seg_bytes / HBM_BYTES_PER_S,
                         summed * w * (1 + (scale is not None))
                         / PEAK_OPS["fp64"]) * 1e3
+        thread_note = ""
+        if path == "block":
+            thr_out = segsum.segment_sum_cuda(vals, plan, scale,
+                                              path="thread")
+            thr_equal = bool(torch.equal(thr_out.cpu(), cpu_ref))
+            thr_ms = graph_ms(lambda: segsum.segment_sum_cuda(
+                vals, plan, scale, path="thread"), sync)
+            thread_note = (f"; through the thread path too: bit-identical "
+                           f"{thr_equal}, device time {thr_ms:.4f} ms")
+            if not thr_equal:
+                raise RuntimeError(f"determinism: segment_sum's thread path "
+                                   f"({label}) differs from the CPU")
+            del thr_out
         say("determinism", f"segment_sum, {label} ({plan.n_entries} entries "
-                           f"x {w} into {plan.n_segments}): card vs "
+                           f"x {w} into {plan.n_segments}, longest "
+                           f"{plan.max_length}): {path} path; card vs "
                            f"index_add_ on the CPU bit-identical: "
                            f"{seg_equal}; device time {seg_ms:.4f} ms, "
                            f"index_add_ on the card {lib_ms:.4f} ms; bound "
-                           f"{seg_bound:.4f} ms (bytes)")
+                           f"{seg_bound:.4f} ms (bytes){thread_note}")
         if not seg_equal:
             raise RuntimeError(f"determinism: segment_sum ({label}) differs "
                                f"from the CPU")
         if label == "COO dedup":
             results["segsum"] = (float((seg_out.cpu() - cpu_ref).abs().max()),
                                  seg_ms, lib_ms, seg_bound)
+        if label == "two-level restriction":
+            results["segsum_block"] = (
+                float((seg_out.cpu() - cpu_ref).abs().max()), seg_ms, lib_ms,
+                seg_bound)
         del vals, scale, seg_out, cpu_ref, src
     # the CG's product on the step's first Newton system: csr_matvec
     # against PyTorch's CSR product (cuSPARSE), its plain version
@@ -1439,7 +1470,58 @@ def main() -> int:
     if not csr_rel <= STEP_BOUND["float64"]:
         raise RuntimeError("determinism: csr_matvec disagrees")
     results["csr"] = (csr_err, csr_ms, csr_lib, csr_bound)
-    del K0, unique, x, A, y, y_lib
+    # the coarse-pair contraction on the same K: the fused kernel
+    # (coarse_pair_sum) against coarse_matrix on the CPU bit for bit, and
+    # timed beside the composition it replaces (the (nnz, 6, 6) products
+    # materialized by PyTorch, then segment_sum) and beside index_add_ of
+    # the materialized products on the card
+    pattern = get_two_level_pattern(fe)
+    pair_plan = two["pair_plan"]
+    pair_args = (unique, two["order"], sp.rows, sp.col_indices,
+                 two["P_vals"], pair_plan)
+    S = segsum.coarse_pair_sum(*pair_args)
+    S_plain = segsum.coarse_pair_sum_plain(*pair_args)
+    A_card = coarse_matrix(pattern, unique, sp.rows, sp.col_indices)
+    A_cpu = coarse_matrix(pattern, unique.cpu(), sp.rows.cpu(),
+                          sp.col_indices.cpu())
+    pair_equal = (bool(torch.equal(A_card.cpu(), A_cpu))
+                  and bool(torch.equal(S.cpu(), S_plain.cpu())))
+    pair_ms = graph_ms(lambda: segsum.coarse_pair_sum(*pair_args), sync)
+    composed_ms = graph_ms(lambda: segsum.coarse_pair_sum_plain(*pair_args),
+                           sync)
+    cm_ms = graph_ms(lambda: coarse_matrix(pattern, unique, sp.rows,
+                                           sp.col_indices), sync)
+    r_o, c_o = sp.rows[two["order"]], sp.col_indices[two["order"]]
+    block = (unique[two["order"]][:, None, None]
+             * two["P_vals"][r_o][:, :, None]
+             * two["P_vals"][c_o][:, None, :])
+    pair_lib = graph_ms(lambda: block.new_zeros(S.shape).index_add_(
+        0, pair_plan.sorted_target, block), sync)
+    del block, r_o, c_o
+    # each of order, unique, rows, cols read once per entry, P once, the
+    # plan's offsets and schedule, the sums written once; 42 products and
+    # 36 adds per entry
+    n_pairs = pair_plan.n_segments
+    pair_bytes = 8 * (4 * nnz + two["P_vals"].numel() + 2 * n_pairs + 1
+                      + 36 * n_pairs)
+    pair_bound = max(pair_bytes / HBM_BYTES_PER_S,
+                     78 * nnz / PEAK_OPS["fp64"]) * 1e3
+    say("determinism", f"coarse_pair_sum ({nnz} entries into {n_pairs} "
+                       f"coarse pairs x 36, longest {pair_plan.max_length}) "
+                       f"on the step's first K: coarse_matrix on the card "
+                       f"vs on the CPU bit-identical: {pair_equal}; device "
+                       f"time {pair_ms:.4f} ms, the composition it replaces "
+                       f"(PyTorch's products, then segment_sum) "
+                       f"{composed_ms:.4f} ms, index_add_ of the "
+                       f"materialized products on the card {pair_lib:.4f} "
+                       f"ms; coarse_matrix as a whole {cm_ms:.4f} ms; "
+                       f"bound {pair_bound:.4f} ms (bytes)")
+    if not pair_equal:
+        raise RuntimeError("determinism: coarse_pair_sum differs from the "
+                           "CPU's coarse_matrix")
+    results["pair"] = (float((S.cpu() - S_plain.cpu()).abs().max()), pair_ms,
+                       composed_ms, pair_bound)
+    del K0, unique, x, A, y, y_lib, S, S_plain, A_card, A_cpu
     sync()
     lap("determinism")
 
@@ -1566,8 +1648,9 @@ def main() -> int:
             and J == J2 and np.array_equal(g, g2)):
         raise RuntimeError("fe-grad: the gradient misses cmad_tpu's or is "
                            "not reproducible")
-    if not all(grad_counts[k] > 0 for k in ("j2_soa_step", "segment_sum",
-                                            "csr_matvec")):
+    if not all(grad_counts[k] > 0 for k in (
+            "j2_soa_step", "segment_sum", "segment_sum_block",
+            "coarse_pair_sum", "csr_matvec")):
         raise RuntimeError(f"fe-grad: a kernel never ran: {grad_counts}")
     del gbundle, vg, runs
     sync()
@@ -1651,6 +1734,8 @@ def main() -> int:
                  "j2_total_step": mp_launches["j2_total_step"],
                  "j2_soa_history_iters": r_launches,
                  "segment_sum": grad_counts["segment_sum"],
+                 "segment_sum_block": grad_counts["segment_sum_block"],
+                 "coarse_pair_sum": grad_counts["coarse_pair_sum"],
                  "csr_matvec": grad_counts["csr_matvec"]}
     say("launches", f"main paths (fe-grad; history-drive; mp-batched; "
                     f"roofline): {main_path}; fe-notch's primal launched "
@@ -1680,6 +1765,8 @@ def main() -> int:
             N_DRIVE * T_DRIVE, sum(hist_plastic)),
         "j2_soa_history_iters": r_bound,
         "segment_sum": (results["segsum"][3], "bytes"),
+        "segment_sum_block": (results["segsum_block"][3], "bytes"),
+        "coarse_pair_sum": (results["pair"][3], "bytes"),
         "csr_matvec": (results["csr"][3], "bytes"),
     }
     # (name, source, replaces, max abs err, ms, plain ms, library ms)
@@ -1696,13 +1783,24 @@ def main() -> int:
                      results[f"{form}_err"], ms, plain_t, None))
     r_err, r_ms, r_plain = results["roofline"]
     seg_err, seg_ms, seg_lib, _sb = results["segsum"]
+    blk_err, blk_ms, blk_lib, _bb = results["segsum_block"]
+    pair_err, pair_ms, pair_plain, _pb = results["pair"]
     csr_err, csr_ms, csr_lib, _cb = results["csr"]
     rows += [("j2_soa_history_iters", SOURCE, f"{ROOFLINE}:40", r_err, r_ms,
               r_plain, None),
              ("segment_sum", SEGSUM_SOURCE,
               "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
-              "assembly.py, sparse_solve.py, two_level.py", seg_err, seg_ms,
-              seg_lib, seg_lib),
+              "assembly.py, sparse_solve.py", seg_err, seg_ms, seg_lib,
+              seg_lib),
+             ("segment_sum_block", SEGSUM_SOURCE,
+              "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
+              "two_level.py _apply_PT; JAX: cmad_tpu/fem/two_level.py:269",
+              blk_err, blk_ms, blk_lib, blk_lib),
+             ("coarse_pair_sum", SEGSUM_SOURCE,
+              "PyTorch product + segment_sum (no Pallas kernel): "
+              "cmad_tpu_torch/fem/two_level.py coarse_matrix; JAX: "
+              "cmad_tpu/fem/two_level.py:314", pair_err, pair_ms, pair_plain,
+              None),
              ("csr_matvec", SEGSUM_SOURCE,
               "torch.sparse_csr_tensor @ x (no Pallas kernel): "
               "cmad_tpu_torch/fem/sparse_solve.py", csr_err, csr_ms, csr_lib,

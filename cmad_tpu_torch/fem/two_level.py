@@ -23,7 +23,8 @@ arm:
 
 The restriction ``P^T r`` (every CG iteration) and the coarse matrix's
 per-pair sums are segment sums over plans of the fixed aggregation
-(``ops/segment_sum.py``), reproducible from run to run on the card; the
+(``ops/segment_sum.py``: the block path's ``segment_sum_block`` and the
+fused ``coarse_pair_sum`` on the card), reproducible from run to run; the
 coarse pairs are distinct, so their blocks are placed into the dense
 matrix by a plain write. The dense Cholesky is ``torch.linalg.cholesky``
 (cuSOLVER on the card); the JAX package computes it outside any Pallas
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from cmad_tpu_torch.ops.segment_sum import (
+    coarse_pair_sum,
     plan_from_sorted,
     plan_from_target,
     segment_sum,
@@ -279,9 +281,10 @@ def _apply_PT(r: Tensor, P_vals: Tensor, agg_plan) -> Tensor:
 def coarse_matrix(pattern: TwoLevelPattern, unique: Tensor, rows: Tensor,
                   cols: Tensor) -> Tensor:
     """A_c = P^T K P from K's deduped COO triplet, dense (m, m): the
-    per-nonzero w*w outer products are formed in coarse-pair order (the
-    plan of :func:`attach_coarse_scatter`), summed per pair in that
-    order, then placed once (the pairs are distinct)."""
+    per-nonzero w*w outer products in coarse-pair order (the plan of
+    :func:`attach_coarse_scatter`), summed per pair in that order
+    (:func:`coarse_pair_sum`: on the card one kernel forms and sums them),
+    then placed once (the pairs are distinct)."""
     m, w = pattern.coarse_dim, pattern.width
     if m > DENSE_COARSE_CEILING:
         raise ValueError(
@@ -290,11 +293,8 @@ def coarse_matrix(pattern: TwoLevelPattern, unique: Tensor, rows: Tensor,
             f"{m * m * 8 / 1e9:.1f} GB; raise 'aggregate nodes' in the "
             "preconditioner spec to shrink the coarse space")
     t = pattern.on(unique.device, unique.dtype)
-    P_vals, order = t["P_vals"], t["order"]
-    r_o, c_o = rows[order], cols[order]
-    block = (unique[order][:, None, None] * P_vals[r_o][:, :, None]
-             * P_vals[c_o][:, None, :])
-    S = segment_sum(block, t["pair_plan"])
+    S = coarse_pair_sum(unique, t["order"], rows, cols, t["P_vals"],
+                        t["pair_plan"])
     A_c = unique.new_zeros((m, m))
     na = pattern.num_aggregates
     A_c.view(na, w, na, w)[t["pI"], :, t["pJ"], :] = S

@@ -132,6 +132,14 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
         fn.restype = ctypes.c_int
+    for name in ("segment_sum_block_f32", "segment_sum_block_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("coarse_pair_sum_f32", "coarse_pair_sum_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 8 + [i64, i64, ptr]
+        fn.restype = ctypes.c_int
     for name in ("csr_matvec_f32", "csr_matvec_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]

@@ -11,13 +11,21 @@ differently and took different Newton paths. A :class:`SegmentPlan`,
 built once per pattern, sorts the entries by target (stably) and records
 where each target's segment starts (CSR-like offsets); the CUDA kernel
 ``segment_sum`` (``csrc/segment_sum.cu``) then sums each segment in
-ascending entry order, starting from 0, in one thread: the CPU's order, so
-the card's sum equals the CPU's bit for bit, and run after run.
+ascending entry order, starting from 0: the CPU's order, so the card's sum
+equals the CPU's bit for bit, and run after run.
 
 - :func:`segment_sum` — ``out[s] = sum of vals[e] (* scale[e]) over the
   entries e of segment s``; the plain version is ``index_add_``. It is
   differentiable in ``vals``: the backward is the gather
-  ``grad_out[segment of entry]``.
+  ``grad_out[segment of entry]``. The plan picks one of two kernels
+  (:func:`segment_path`): one thread per output where every segment is
+  short (``segment_sum``), one block per segment, longest first, where
+  some segment is long (``segment_sum_block``); both add each output's
+  entries in the same order, so they give the same bits.
+- :func:`coarse_pair_sum` — the two-level coarse matrix's sums per coarse
+  pair, ``sum of (unique[e] * P[rows[e], a]) * P[cols[e], b]``, with the
+  products formed inside the kernel (``coarse_pair_sum``) rather than
+  materialized; the plain version is that product and :func:`segment_sum`.
 - :func:`segment_gather` — ``x[segment of entry]``, whose backward is the
   segment sum (so the FE gathers of U transpose reproducibly too).
 - :func:`csr_matvec` — ``y = A x`` for a CSR matrix, each row summed in
@@ -39,19 +47,45 @@ import torch
 from cmad_tpu_torch.typing import Tensor
 
 segment_sum_launches = 0
+segment_sum_block_launches = 0
+coarse_pair_sum_launches = 0
 csr_matvec_launches = 0
 
 _DTYPES = (torch.float32, torch.float64)
 
+# The block path runs where the plan's longest segment has at least
+# LONG_SEGMENT entries and the plan sums at most BLOCK_MAX_SPREAD times
+# that many entries in all (and the width fits the block's adders): its
+# time is the longest segment's chain of adds as long as the other
+# segments fit beside it in about one wave of its blocks (132 SMs x 4),
+# while the thread path runs one thread per output. Measured on an H100
+# (tools/torch_kernel_probe.py --segsum, uniform plans, PERF.md): 166
+# segments of 6 columns are faster on the block path from 32 entries on
+# (16: 2.55 us against the thread path's 2.34); 256-entry segments of 6
+# columns up to 528 of them (7.23 us against 9.68), not at 1,056 (12.79
+# against 9.84). The FE path's short plans (at most 45 entries, thousands
+# of segments) take the thread path, the restriction (504 entries, 58
+# times that in all) and the coarse pairs (13,538; 78 times) the block
+# path.
+LONG_SEGMENT = 32
+BLOCK_MAX_SPREAD = 512
+BLOCK_MAX_WIDTH = 64      # adder threads per block (csrc: kBlockMaxWidth)
+COARSE_PAIR_WIDTH = 6     # the coarse pairs' P width (csrc: W)
+
 
 def reset_launch_counts() -> None:
-    global segment_sum_launches, csr_matvec_launches
+    global segment_sum_launches, segment_sum_block_launches
+    global coarse_pair_sum_launches, csr_matvec_launches
     segment_sum_launches = 0
+    segment_sum_block_launches = 0
+    coarse_pair_sum_launches = 0
     csr_matvec_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {"segment_sum": segment_sum_launches,
+            "segment_sum_block": segment_sum_block_launches,
+            "coarse_pair_sum": coarse_pair_sum_launches,
             "csr_matvec": csr_matvec_launches}
 
 
@@ -64,7 +98,10 @@ class SegmentPlan:
     ``sorted_target`` the segment of each position of that order, and
     ``target`` (n_entries,) the segment of each entry, or None when some
     entries belong to no segment (the plan sums only those ``perm``
-    lists)."""
+    lists). ``max_length`` is the longest segment's entry count and
+    ``schedule`` (n_segments,) the segment ids longest first (ties in
+    ascending id): the order in which the block path's blocks take
+    them."""
 
     offsets: Tensor
     perm: Tensor | None
@@ -72,6 +109,8 @@ class SegmentPlan:
     target: Tensor | None
     n_segments: int
     n_entries: int
+    max_length: int
+    schedule: Tensor
 
 
 def _index(a, device) -> Tensor:
@@ -106,12 +145,15 @@ def plan_from_sorted(perm, sorted_target, n_segments: int, n_entries: int,
     if target is None and perm is None \
             and sorted_target.shape[0] == n_entries:
         target = sorted_target
+    lengths = np.diff(offsets)
     return SegmentPlan(
         offsets=_index(offsets, device),
         perm=None if perm is None else _index(perm, device),
         sorted_target=_index(sorted_target, device),
         target=None if target is None else _index(target, device),
-        n_segments=int(n_segments), n_entries=int(n_entries))
+        n_segments=int(n_segments), n_entries=int(n_entries),
+        max_length=int(lengths.max(initial=0)),
+        schedule=_index(np.argsort(-lengths, kind="stable"), device))
 
 
 def plan_from_offsets(offsets, device) -> SegmentPlan:
@@ -171,22 +213,55 @@ def _column(scale: Tensor, like: Tensor) -> Tensor:
     return scale.reshape(-1, *([1] * (like.dim() - 1)))
 
 
-def _segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
-                      scale: Tensor | None) -> Tensor:
+def segment_path(plan: SegmentPlan, width: int) -> str:
+    """The kernel that sums ``plan`` at ``width`` values per entry:
+    ``"block"`` where its longest segment has at least
+    :data:`LONG_SEGMENT` entries, it sums at most :data:`BLOCK_MAX_SPREAD`
+    times that many entries, and ``width`` fits the block's adders; else
+    ``"thread"``. A property of the plan's shape alone."""
+    summed = int(plan.sorted_target.shape[0])
+    if (plan.max_length >= LONG_SEGMENT
+            and summed <= BLOCK_MAX_SPREAD * plan.max_length
+            and 0 < width <= BLOCK_MAX_WIDTH):
+        return "block"
+    return "thread"
+
+
+def _check_index(kernel: str, name: str, idx: Tensor | None,
+                 like: Tensor) -> None:
+    if idx is not None and (idx.device != like.device
+                            or idx.dtype != torch.int64
+                            or not idx.is_contiguous()):
+        raise ValueError(f"{kernel}: {name} must be contiguous int64 on "
+                         f"{like.device}")
+
+
+def _launched(kernel: str, lib, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
+                           f"({lib.j2_error_string(rc).decode()})")
+
+
+def segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
+                     scale: Tensor | None = None,
+                     path: str | None = None) -> Tensor:
+    """The segment sum on the card: ``segment_sum`` (one thread per
+    output) or ``segment_sum_block`` (one block per segment), as
+    :func:`segment_path` picks for the plan, or as ``path`` says (the
+    card's checks run a long plan through both). The same bits either
+    way."""
     from cmad_tpu_torch.ops._build import load_library
 
-    global segment_sum_launches
+    global segment_sum_launches, segment_sum_block_launches
     if vals.device.type != "cuda":
         raise ValueError(f"segment_sum: the CUDA kernel takes CUDA tensors; "
                          f"got device {vals.device}")
     _check("vals", vals, vals)
     if not vals.is_contiguous():
         raise ValueError("segment_sum: vals must be contiguous")
-    for name, idx in (("offsets", plan.offsets), ("perm", plan.perm)):
-        if idx is not None and (idx.device != vals.device
-                                or idx.dtype != torch.int64):
-            raise ValueError(f"segment_sum: plan.{name} must be int64 on "
-                             f"{vals.device}")
+    for name, idx in (("offsets", plan.offsets), ("perm", plan.perm),
+                      ("schedule", plan.schedule)):
+        _check_index("segment_sum", f"plan.{name}", idx, vals)
     if scale is not None:
         _check("scale", scale, vals)
         if tuple(scale.shape) != (plan.n_entries,) \
@@ -194,21 +269,31 @@ def _segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
             raise ValueError(f"segment_sum: scale must be a contiguous "
                              f"({plan.n_entries},) vector")
     width = int(np.prod(vals.shape[1:], dtype=np.int64))
+    path = segment_path(plan, width) if path is None else path
+    if path not in ("thread", "block") or (
+            path == "block" and not 0 < width <= BLOCK_MAX_WIDTH):
+        raise ValueError(f"segment_sum: no {path!r} path at width {width}")
     out = vals.new_empty((plan.n_segments, *vals.shape[1:]))
     lib = load_library()
-    fn = lib.segment_sum_f64 if vals.dtype == torch.float64 \
-        else lib.segment_sum_f32
+    sfx = "f64" if vals.dtype == torch.float64 else "f32"
+    perm = None if plan.perm is None else plan.perm.data_ptr()
+    sc = None if scale is None else scale.data_ptr()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        rc = fn(vals.data_ptr(),
-                None if plan.perm is None else plan.perm.data_ptr(),
-                plan.offsets.data_ptr(),
-                None if scale is None else scale.data_ptr(),
+        if path == "block":
+            rc = getattr(lib, f"segment_sum_block_{sfx}")(
+                vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
+                plan.schedule.data_ptr(), out.data_ptr(), plan.n_segments,
+                width, stream)
+        else:
+            rc = getattr(lib, f"segment_sum_{sfx}")(
+                vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
                 out.data_ptr(), plan.n_segments, width, stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_sum launch failed: CUDA error {rc} "
-                           f"({lib.j2_error_string(rc).decode()})")
-    segment_sum_launches += 1
+    _launched(f"segment_sum ({path} path)", lib, rc)
+    if path == "block":
+        segment_sum_block_launches += 1
+    else:
+        segment_sum_launches += 1
     return out
 
 
@@ -218,7 +303,7 @@ def _segment_sum_raw(vals: Tensor, plan: SegmentPlan,
         raise ValueError(f"segment_sum: {vals.shape[0]} entries, the plan "
                          f"has {plan.n_entries}")
     if vals.device.type == "cuda":
-        return _segment_sum_cuda(vals, plan, scale)
+        return segment_sum_cuda(vals, plan, scale)
     if vals.device.type == "cpu":
         return _segment_sum_plain(vals, plan, scale)
     raise ValueError(f"segment_sum: no kernel for device {vals.device}")
@@ -278,6 +363,79 @@ def segment_gather(x: Tensor, plan: SegmentPlan) -> Tensor:
     return _gather(x, plan)
 
 
+def coarse_pair_sum_plain(unique: Tensor, order: Tensor, rows: Tensor,
+                          cols: Tensor, P_vals: Tensor,
+                          plan: SegmentPlan) -> Tensor:
+    """The plain version of :func:`coarse_pair_sum`: the ``(nnz, w, w)``
+    products materialized in pair order, then :func:`segment_sum`."""
+    r_o, c_o = rows[order], cols[order]
+    block = (unique[order][:, None, None] * P_vals[r_o][:, :, None]
+             * P_vals[c_o][:, None, :])
+    return segment_sum(block, plan)
+
+
+def coarse_pair_sum_cuda(unique: Tensor, order: Tensor, rows: Tensor,
+                         cols: Tensor, P_vals: Tensor,
+                         plan: SegmentPlan) -> Tensor:
+    """:func:`coarse_pair_sum` on the card (``coarse_pair_sum``), each
+    entry's products formed in the kernel. Forward only."""
+    from cmad_tpu_torch.ops._build import load_library
+
+    global coarse_pair_sum_launches
+    if unique.device.type != "cuda":
+        raise ValueError(f"coarse_pair_sum: the CUDA kernel takes CUDA "
+                         f"tensors; got device {unique.device}")
+    _check("unique", unique, unique)
+    _check("P_vals", P_vals, unique)
+    if torch.is_grad_enabled() and (unique.requires_grad
+                                    or P_vals.requires_grad):
+        raise RuntimeError("coarse_pair_sum: the CUDA kernel is forward "
+                           "only; its inputs must not require grad")
+    w = COARSE_PAIR_WIDTH
+    n = int(rows.shape[0])
+    if tuple(unique.shape) != (n,) or P_vals.dim() != 2 \
+            or P_vals.shape[1] != w or tuple(order.shape) != (n,) \
+            or tuple(cols.shape) != (n,) or plan.n_entries != n \
+            or not (unique.is_contiguous() and P_vals.is_contiguous()):
+        raise ValueError(f"coarse_pair_sum: unique, order, rows, cols must "
+                         f"be ({n},) over the plan's entries and P_vals a "
+                         f"contiguous (n_dofs, {w}) matrix")
+    for name, idx in (("order", order), ("rows", rows), ("cols", cols),
+                      ("plan.offsets", plan.offsets),
+                      ("plan.schedule", plan.schedule)):
+        _check_index("coarse_pair_sum", name, idx, unique)
+    out = unique.new_empty((plan.n_segments, w, w))
+    lib = load_library()
+    fn = lib.coarse_pair_sum_f64 if unique.dtype == torch.float64 \
+        else lib.coarse_pair_sum_f32
+    with torch.cuda.device(unique.device):
+        stream = torch.cuda.current_stream(unique.device).cuda_stream
+        rc = fn(unique.data_ptr(), order.data_ptr(), rows.data_ptr(),
+                cols.data_ptr(), P_vals.data_ptr(), plan.offsets.data_ptr(),
+                plan.schedule.data_ptr(), out.data_ptr(), plan.n_segments, w,
+                stream)
+    _launched("coarse_pair_sum", lib, rc)
+    coarse_pair_sum_launches += 1
+    return out
+
+
+def coarse_pair_sum(unique: Tensor, order: Tensor, rows: Tensor,
+                    cols: Tensor, P_vals: Tensor,
+                    plan: SegmentPlan) -> Tensor:
+    """``(n_pairs, w, w)``: per coarse pair ``p`` of ``plan`` (positions
+    ``i`` in pair order, entry ``e = order[i]`` of the fine COO triplet
+    ``(unique, rows, cols)``), the sum over its entries of
+    ``(unique[e] * P_vals[rows[e], a]) * P_vals[cols[e], b]``, added in
+    ascending ``i`` from 0. The kernel on the card, the plain version on
+    the CPU; the same bits."""
+    if unique.device.type == "cuda":
+        return coarse_pair_sum_cuda(unique, order, rows, cols, P_vals, plan)
+    if unique.device.type == "cpu":
+        return coarse_pair_sum_plain(unique, order, rows, cols, P_vals, plan)
+    raise ValueError(f"coarse_pair_sum: no kernel for device "
+                     f"{unique.device}")
+
+
 def csr_tensor(indptr: Tensor, cols: Tensor, data: Tensor,
                n: int) -> Tensor:
     """The ``(n, n)`` PyTorch CSR matrix ``(indptr, cols, data)``: the
@@ -305,9 +463,7 @@ def csr_matvec_cuda(indptr: Tensor, cols: Tensor, data: Tensor,
         raise ValueError(f"csr_matvec: x must be a contiguous ({n},) "
                          f"vector and data contiguous")
     for name, idx in (("indptr", indptr), ("cols", cols)):
-        if idx.device != x.device or idx.dtype != torch.int64:
-            raise ValueError(f"csr_matvec: {name} must be int64 on "
-                             f"{x.device}")
+        _check_index("csr_matvec", name, idx, x)
     y = torch.empty_like(x)
     lib = load_library()
     fn = lib.csr_matvec_f64 if x.dtype == torch.float64 \
@@ -316,9 +472,7 @@ def csr_matvec_cuda(indptr: Tensor, cols: Tensor, data: Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(indptr.data_ptr(), cols.data_ptr(), data.data_ptr(),
                 x.data_ptr(), y.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"csr_matvec launch failed: CUDA error {rc} "
-                           f"({lib.j2_error_string(rc).decode()})")
+    _launched("csr_matvec", lib, rc)
     csr_matvec_launches += 1
     return y
 

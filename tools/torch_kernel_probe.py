@@ -37,6 +37,24 @@ checkout's library:
 
     python3 tools/torch_kernel_probe.py --roofline
 
+``--segsum`` times the reproducible sums instead (``csrc/segment_sum.cu``)
+on the six segment plans of the 47,628-tet notch, built on the host by the
+port (the residual scatter, the COO dedup and rows, the CSR dedup, the
+two-level restriction and coarse pairs) and on synthetic plans of uniform
+segment length: each library's thread path (``segment_sum``) and, where
+it has one, its block path (``segment_sum_block``), beside ``index_add_``
+on the card, each output against ``index_add_`` on the CPU bit for bit;
+then the two-level ``coarse_matrix`` as a whole and its per-pair sum alone,
+as PyTorch's products plus each library's segment sum and as each
+library's fused ``coarse_pair_sum``, against ``coarse_matrix`` on the CPU.
+Device times come from a CUDA graph of 20 launches (``chip_smoke.graph_ms``),
+the libraries in turns. Each plan's row gives its byte bound and its chain
+floor: the longest segment times the latency of one dependent f64 add,
+which a one-thread chain kernel measures in the same call:
+
+    python3 tools/torch_kernel_probe.py --segsum \
+        --src parent=build/parent/cmad_tpu_torch/csrc --src change=cmad_tpu_torch/csrc
+
 ``--variant NAME=BASE:OLD->NEW|...`` adds a copy of library BASE's
 sources with each OLD text (which must occur once) replaced by NEW, to
 time a tuning constant beside the source it comes from. ``--sass FILE``
@@ -173,12 +191,292 @@ def load(path: Path) -> ctypes.CDLL:
     sigs = {"j2_soa_step": [ptr] * 4 + [i64, ptr],
             "j2_soa_history": [ptr] * 4 + [i64, i64, ptr],
             "j2_aos_step": [ptr] * 6 + [i64, ptr],
-            "j2_total_step": [ptr] * 5 + [i64, ptr]}
+            "j2_total_step": [ptr] * 5 + [i64, ptr],
+            "segment_sum": [ptr] * 5 + [i64, i64, ptr],
+            "segment_sum_block": [ptr] * 6 + [i64, i64, ptr],
+            "coarse_pair_sum": [ptr] * 8 + [i64, i64, ptr]}
     for base, args in sigs.items():
         for sfx in ("f32", "f64"):
-            fn = getattr(lib, f"{base}_{sfx}")
-            fn.argtypes, fn.restype = args, ctypes.c_int
+            # a parent's library may lack the newer entries
+            fn = getattr(lib, f"{base}_{sfx}", None)
+            if fn is not None:
+                fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
+
+
+# --------------------------------------------------------------------------
+# the reproducible sums (--segsum)
+
+# one thread's chain of dependent f64 adds: the latency of one DADD, in
+# ns (CUDA events) and in SM cycles (clock64), for the chain floor of a
+# segment sum that adds each output's entries in order
+CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void dadd_chain(double* x, double step, long long n,
+                           long long* cycles) {
+  double acc = x[0];
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (long long i = 0; i < n; ++i) acc = __dadd_rn(acc, step);
+  const long long t1 = clock64();
+  x[0] = acc;
+  cycles[0] = t1 - t0;
+}
+extern "C" int dadd_chain_run(void* x, double step, long long n,
+                              void* cycles, void* stream) {
+  dadd_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(x), step, n, static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+CHAIN_ADDS = 1 << 22
+# synthetic plans of uniform segment length (segments, length, width):
+# the restriction's 166 segments at lengths around the block path's
+# threshold, then 256-entry segments in growing numbers at widths 6 and 1
+SYNTH_PLANS = tuple((166, length, 6) for length in (16, 32, 48, 64, 96,
+                                                    128, 512)) + tuple(
+    (n_seg, 256, w) for w in (6, 1)
+    for n_seg in (528, 1056, 2112, 4224, 8448, 29_040))
+
+
+def dadd_latency(out: Path) -> dict:
+    """ns and SM cycles per dependent f64 add, best of 3 chains of
+    CHAIN_ADDS adds."""
+    import torch
+
+    src = out / "dadd_chain.cu"
+    src.write_text(CHAIN_SRC)
+    so = out / "lib" / "dadd_chain.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(so), str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.dadd_chain_run.argtypes = [ctypes.c_void_p, ctypes.c_double,
+                                   ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+    lib.dadd_chain_run.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    x = torch.ones(1, dtype=torch.float64, device=dev)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    best_ns, best_cyc = math.inf, math.inf
+    for _ in range(4):      # the first is a warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = lib.dadd_chain_run(x.data_ptr(), 1e-300, CHAIN_ADDS,
+                                cyc.data_ptr(), stream)
+        end.record()
+        end.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"dadd_chain launch failed: CUDA error {rc}")
+        best_ns = min(best_ns, start.elapsed_time(end) * 1e6 / CHAIN_ADDS)
+        best_cyc = min(best_cyc, int(cyc.item()) / CHAIN_ADDS)
+    return {"ns_per_add": best_ns, "cycles_per_add": best_cyc}
+
+
+def segsum(args, libs: dict, report: dict, out: Path) -> None:
+    """The --segsum mode: the module docstring says what it times."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import FE_MESH, FE_RECORDS, graph_ms, notch_deck
+    from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
+    from cmad_tpu_torch.fem.nonlinear_solver import get_two_level_pattern
+    from cmad_tpu_torch.ops import segment_sum as ss
+
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64 = torch.float64
+
+    def stream():
+        # the current stream at each launch: graph_ms captures on its own
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    chain = dadd_latency(out)
+    print(json.dumps({"dadd_chain": chain}), flush=True)
+    report["dadd_chain"] = chain
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    def in_turns(calls: dict) -> dict:
+        """Device ms per call of each ``calls[name]()``, best of
+        ``--rounds`` CUDA-graph timings, the names in turns (A B .. B A)."""
+        best = {nm: math.inf for nm in calls}
+        names = list(calls)
+        for r in range(args.rounds):
+            for nm in (names if r % 2 == 0 else names[::-1]):
+                best[nm] = min(best[nm], graph_ms(calls[nm], sync))
+        return best
+
+    def plan_row(label, plan, width, scale_too=False):
+        w = int(np.prod(width, dtype=np.int64))
+        vals = torch.randn((plan.n_entries, *width), generator=gen,
+                           device=dev, dtype=f64)
+        scale = (torch.randn(plan.n_entries, generator=gen, device=dev,
+                             dtype=f64) if scale_too else None)
+        if plan.target is None:
+            idx, src = plan.sorted_target, vals[plan.perm]
+        else:
+            idx, src = plan.target, vals
+        if scale is not None:
+            src = src * scale.reshape(-1, *([1] * len(width)))
+        ref = torch.zeros((plan.n_segments, *width), dtype=f64).index_add_(
+            0, idx.cpu(), src.cpu())
+        perm = None if plan.perm is None else plan.perm.data_ptr()
+        sc = None if scale is None else scale.data_ptr()
+        calls, outs = {}, {}
+        for nm, lib in libs.items():
+            o = torch.empty((plan.n_segments, *width), dtype=f64, device=dev)
+            calls[f"{nm}/thread"] = (lambda lib=lib, o=o: check(
+                lib.segment_sum_f64(vals.data_ptr(), perm,
+                                    plan.offsets.data_ptr(), sc,
+                                    o.data_ptr(), plan.n_segments, w,
+                                    stream())))
+            outs[f"{nm}/thread"] = o
+            if getattr(lib, "segment_sum_block_f64", None) is not None \
+                    and w <= ss.BLOCK_MAX_WIDTH:
+                ob = torch.empty_like(o)
+                calls[f"{nm}/block"] = (lambda lib=lib, ob=ob: check(
+                    lib.segment_sum_block_f64(
+                        vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
+                        plan.schedule.data_ptr(), ob.data_ptr(),
+                        plan.n_segments, w, stream())))
+                outs[f"{nm}/block"] = ob
+        calls["index_add_"] = (lambda: vals.new_zeros(
+            (plan.n_segments, *width)).index_add_(0, idx, src))
+        for fn in calls.values():
+            fn()
+        sync()
+        equal = {nm: bool(torch.equal(o.cpu(), ref)) for nm, o in outs.items()}
+        ms = in_turns(calls)
+        summed = int(plan.sorted_target.shape[0])
+        nbytes = 8 * (summed * (w + (plan.perm is not None)
+                                + (scale is not None))
+                      + plan.n_segments * (w + 1) + 1)
+        row = {"case": label, "entries": plan.n_entries, "summed": summed,
+               "width": w, "segments": plan.n_segments,
+               "longest": plan.max_length,
+               "path": ss.segment_path(plan, w), "ms": ms,
+               "bit_identical_to_cpu_index_add": equal,
+               "byte_bound_ms": nbytes / 3.35e12 * 1e3,
+               "chain_floor_ms": plan.max_length * chain["ns_per_add"] * 1e-6}
+        print(json.dumps(row), flush=True)
+        report.setdefault("segsum", []).append(row)
+        return row
+
+    fe = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS),
+                                    device=dev).fe_problem
+    ka = fe.kernel_arrays
+    pattern = get_two_level_pattern(fe)
+    two = pattern.on(dev, f64)
+    plans = {"residual scatter": (ka.eq_plan_by_block["block_1"][0], ()),
+             "COO dedup": (ka.coo_dedup_plan, ()),
+             "COO rows": (ka.coo_row_plan, ()),
+             "CSR dedup": (fe.embedded_sparsity.dedup_plan, ()),
+             "two-level restriction": (two["agg_plan"], (6,)),
+             "coarse pairs": (two["pair_plan"], (6, 6))}
+    for label, (plan, width) in plans.items():
+        plan_row(label, plan, width,
+                 scale_too=label == "two-level restriction")
+        torch.cuda.empty_cache()
+    for n_seg, length, w in SYNTH_PLANS:
+        plan = ss.plan_from_offsets(np.arange(n_seg + 1) * length, dev)
+        plan_row(f"uniform {n_seg} x {length} x {w}", plan,
+                 (w,) if w > 1 else ())
+
+    # coarse_matrix as a whole, and its per-pair sum alone, on K's pattern
+    # with random values: PyTorch's products + each library's segment sum
+    # (the composition every library before the fused kernel ran), and
+    # each library's fused coarse_pair_sum
+    sp = fe.embedded_sparsity
+    nnz = sp.num_unique
+    unique = torch.randn(nnz, generator=gen, device=dev, dtype=f64)
+    order, P, plan = two["order"], two["P_vals"], two["pair_plan"]
+    na, w = pattern.num_aggregates, pattern.width
+    m = pattern.coarse_dim
+
+    def products():
+        r_o, c_o = sp.rows[order], sp.col_indices[order]
+        return (unique[order][:, None, None] * P[r_o][:, :, None]
+                * P[c_o][:, None, :])
+
+    def place(S):
+        A = unique.new_zeros((m, m))
+        A.view(na, w, na, w)[two["pI"], :, two["pJ"], :] = S
+        return A
+
+    from cmad_tpu_torch.fem.two_level import coarse_matrix
+    ref = coarse_matrix(pattern, unique.cpu(), sp.rows.cpu(),
+                        sp.col_indices.cpu())
+    whole, alone = {}, {}
+    block = products()
+    for nm, lib in libs.items():
+        def composed(lib=lib, path="thread"):
+            b = products()
+            S = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
+            if path == "thread":
+                check(lib.segment_sum_f64(b.data_ptr(), None,
+                                          plan.offsets.data_ptr(), None,
+                                          S.data_ptr(), plan.n_segments,
+                                          w * w, stream()))
+            else:
+                check(lib.segment_sum_block_f64(
+                    b.data_ptr(), None, plan.offsets.data_ptr(), None,
+                    plan.schedule.data_ptr(), S.data_ptr(), plan.n_segments,
+                    w * w, stream()))
+            return place(S)
+
+        whole[f"{nm}/products+thread"] = composed
+        if getattr(lib, "segment_sum_block_f64", None) is not None:
+            whole[f"{nm}/products+block"] = (
+                lambda composed=composed: composed(path="block"))
+        if getattr(lib, "coarse_pair_sum_f64", None) is not None:
+            S_f = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
+
+            def fused_sum(lib=lib, S_f=S_f):
+                check(lib.coarse_pair_sum_f64(
+                    unique.data_ptr(), order.data_ptr(), sp.rows.data_ptr(),
+                    sp.col_indices.data_ptr(), P.data_ptr(),
+                    plan.offsets.data_ptr(), plan.schedule.data_ptr(),
+                    S_f.data_ptr(), plan.n_segments, w, stream()))
+                return S_f
+
+            whole[f"{nm}/fused"] = (lambda fused_sum=fused_sum:
+                                    place(fused_sum()))
+            alone[f"{nm}/fused sum"] = fused_sum
+        S_t = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
+        alone[f"{nm}/thread sum"] = (lambda lib=lib, S_t=S_t: check(
+            lib.segment_sum_f64(block.data_ptr(), None,
+                                plan.offsets.data_ptr(), None, S_t.data_ptr(),
+                                plan.n_segments, w * w, stream())))
+    alone["index_add_ sum"] = (lambda: block.new_zeros(
+        (plan.n_segments, w, w)).index_add_(0, plan.sorted_target, block))
+    equal = {nm: bool(torch.equal(fn().cpu(), ref))
+             for nm, fn in whole.items()}
+    sync()
+    pair_bytes = 8 * (4 * nnz + P.numel() + 2 * plan.n_segments + 1
+                      + w * w * plan.n_segments)
+    row = {"case": "coarse_matrix", "entries": nnz,
+           "pairs": plan.n_segments, "longest": plan.max_length,
+           "whole_ms": in_turns(whole), "sum_alone_ms": in_turns(alone),
+           "bit_identical_to_cpu_coarse_matrix": equal,
+           "fused_byte_bound_ms": pair_bytes / 3.35e12 * 1e3,
+           "products_bytes": block.numel() * 8,
+           "chain_floor_ms": plan.max_length * chain["ns_per_add"] * 1e-6}
+    print(json.dumps(row), flush=True)
+    report.setdefault("segsum", []).append(row)
+    bad = [r["case"] for r in report["segsum"]
+           if not all(r.get("bit_identical_to_cpu_index_add",
+                            r.get("bit_identical_to_cpu_coarse_matrix",
+                                  {})).values())]
+    print(f"segsum: every output bit-identical to the CPU's: "
+          f"{'yes' if not bad else 'no: ' + str(bad)}", flush=True)
+    if bad:
+        raise RuntimeError(f"segsum: outputs differ from the CPU: {bad}")
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +521,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sass", help="parse this cuobjdump -sass listing "
                                    "and exit")
+    ap.add_argument("--segsum", action="store_true",
+                    help="time the reproducible sums on the notch's plans "
+                         "(segment_sum, segment_sum_block, coarse_pair_sum) "
+                         "instead of the J2 kernels")
     ap.add_argument("--roofline", action="store_true",
                     help="run the roofline sweeps (ops/roofline.py) on "
                          "this checkout's library and exit")
@@ -293,6 +595,12 @@ def main() -> int:
                   f"{s.get('instructions')} instructions; "
                   f"{s.get('mnemonics')}", flush=True)
         libs[name] = load(path)
+
+    if args.segsum:
+        segsum(args, libs, report, out)
+        (out / "probe.json").write_text(json.dumps(report, indent=1))
+        print(card, flush=True)
+        return 1 if failed else 0
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
