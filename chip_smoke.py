@@ -39,16 +39,19 @@ the built library's SASS counts them). The paths driven:
   after each step; on 153,600 tets, the same solver, timed only. Each
   counts its ``j2_soa_step`` launches against the assemblies its Newton
   and line searches made, and the last two time an assembly, K1 at the
-  FE shape (on the device, from a CUDA graph), the two-level setup and
-  one CG solve;
+  FE shape (on the device, from a CUDA graph: warm, on the same inputs
+  again, and cold, rotating through copies of them larger than the L2;
+  beside its launch floor, an empty kernel on its grid; and on an
+  all-elastic and an all-plastic set of the same size), the two-level
+  setup and one CG solve;
 - determinism: the 47,628-tet drive a second time in the same process,
   bit for bit the same U history, Newton path and CG counts; then the
   segment sum on each of the FE path's six plans, on the kernel the plan
   picks, against ``index_add_`` on the CPU bit for bit (the plans of long
   segments through the thread path too), ``csr_matvec`` against PyTorch's
   CSR product, and ``coarse_pair_sum`` on the step's first K against
-  ``coarse_matrix`` on the CPU bit for bit, each timed on the device
-  beside the PyTorch calls it replaces;
+  ``coarse_matrix`` on the CPU bit for bit, each timed on the device,
+  warm and cold, beside the PyTorch calls it replaces;
 - the FE J2 stepped gradient of the notch calibration
   (``benchmarks/notch_hosford/calibrate_scale.py``: a truth at Y = 2.0
   from the port's primal, then J and dJ/dc at Y = 2.6 under the log
@@ -57,14 +60,24 @@ the built library's SASS counts them). The paths driven:
   against the CPU (plain step, direct) and against a central difference
   on the card; on 47,628 tets with the records' solver against
   cmad_tpu's CPU f64 numbers, twice, bit for bit, with the forward and
-  reverse sweeps' time split;
+  reverse sweeps' time split and the segment sums' launches per plan;
 - the roofline experiment (``ops/roofline.py``): the f32 history at
   2,097,152 points x 16 steps, Newton iterations 1-12 at 8 steps a
   launch and 1-16 steps a launch at 8 iterations, each row against the
   plain drive.
 
+Before the paths, ``j2_soa_step`` is held to its plain version at
+1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
+shape, and in f64 on the two materials outside the range of its f32 Newton
+phase (``range_scalars``), one step from rest, also against the yield
+condition.
+
 It prints one line per phase (each with its wall seconds), the card's
-name and power limit, a JSON line with one entry per kernel, then the
+name and power limit, a JSON line with one entry per kernel (``ms``,
+``plain_ms`` and ``library_ms`` warm, as the path runs them; beside them
+``cold_ms``, ``plain_cold_ms`` and ``library_cold_ms``, each call's inputs
+read from device memory, from which the FE kernels' share of their byte
+bound is taken), then the
 final JSON line ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero; without a CUDA device it exits
 non-zero at once.
@@ -193,6 +206,26 @@ FE_SMALL_BOUND = 1e-5
 # K1 reads 7 rows of xi and 6 of de and writes 8 rows of xi': 21 x 8 B
 BYTES_PER_K1_POINT = 168
 GRAPH_REPS = 20     # K1 launches per CUDA graph, timed on the device
+# K1's launch floor: an empty kernel on K1's grid in the same CUDA graph.
+# At the FE notch's shape that grid is one block of K1_THREADS threads
+# (csrc: kStepThreads) for each K1_THREADS points: fewer blocks than fill
+# the card at K1's occupancy, so every block takes one round
+K1_THREADS = 128
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_run(int grid, int threads, void* stream) {
+  empty_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# cold timings (cold_ms) rotate through copies of a call's inputs that
+# add up to more than COLD_L2_FACTOR x the H100's 50 MB L2: a warm time
+# (graph_ms, the same inputs again) of a call whose inputs fit in the L2
+# reads them from there, and beat the HBM byte bound (the CSR dedup, 28 MB:
+# 149% of it)
+L2_BYTES = 50 * 2**20
+COLD_L2_FACTOR = 2
 
 # the FE gradient of the notch calibration
 # (benchmarks/notch_hosford/calibrate_scale.py:86-160): the truth is the
@@ -397,22 +430,31 @@ def best_ms(fn, x0, sync) -> float:
     return best
 
 
-def graph_ms(fn, sync) -> float:
-    """Device ms per call of ``fn()``: GRAPH_REPS calls captured in one
-    CUDA graph and replayed, best of ROUNDS replays after a warm-up, so
-    that the launches run back to back without the host's dispatch."""
+def _replay_ms(calls, sync, keep=False) -> float:
+    """Device ms per call of the ``calls`` (each a function of no
+    arguments), captured in this order in one CUDA graph and replayed,
+    best of ROUNDS replays after a warm-up, so that the launches run back
+    to back without the host's dispatch. With ``keep`` what the calls
+    return is kept until the graph is gone, so that no two calls share an
+    output; without, each call's output is freed for the next one's, as on
+    a path that drops it."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in dict.fromkeys(calls):
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     sync()
     graph = torch.cuda.CUDAGraph()
+    kept = []
     with torch.cuda.graph(graph):
-        for _ in range(GRAPH_REPS):
-            fn()
+        for fn in calls:
+            out = fn()
+            if keep:
+                kept.append(out)
+            del out
     graph.replay()
     sync()
     best = math.inf
@@ -423,9 +465,92 @@ def graph_ms(fn, sync) -> float:
         graph.replay()
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end) / GRAPH_REPS)
-    del graph
+        best = min(best, start.elapsed_time(end) / len(calls))
+    del graph, kept
     return best
+
+
+def graph_ms(fn, sync) -> float:
+    """Device ms per call of ``fn()``, GRAPH_REPS calls in one CUDA graph
+    (:func:`_replay_ms`): warm, the inputs of one call in the L2 for the
+    next, as a path that calls it on the same inputs runs it."""
+    return _replay_ms([fn] * GRAPH_REPS, sync)
+
+
+def _tensors(a) -> list:
+    """The tensors of ``a``: a tensor, a dataclass of tensors (a segment
+    plan) or a tuple of these."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return [a]
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return [v for f in dataclasses.fields(a)
+                for v in _tensors(getattr(a, f.name))]
+    if isinstance(a, tuple):
+        return [v for x in a for v in _tensors(x)]
+    return []
+
+
+def _fresh(a):
+    """``a`` with every tensor in it copied to new device memory."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return dataclasses.replace(a, **{
+            f.name: _fresh(getattr(a, f.name))
+            for f in dataclasses.fields(a)
+            if isinstance(getattr(a, f.name), torch.Tensor)})
+    if isinstance(a, tuple):
+        return tuple(_fresh(x) for x in a)
+    return a
+
+
+def cold_ms(fn, args: tuple, sync) -> float:
+    """Device ms per call of ``fn(*args)`` with its inputs cold in the L2:
+    copies of ``args`` that add up to more than COLD_L2_FACTOR times the
+    L2 (at least two), called in turn in one CUDA graph of at least
+    GRAPH_REPS calls (:func:`_replay_ms`), so that each call reads its
+    inputs from device memory and writes outputs of its own, as the byte
+    bound counts them."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(args))
+    copies = max(2, COLD_L2_FACTOR * L2_BYTES // max(nbytes, 1) + 1)
+    sets = [args] + [_fresh(args) for _ in range(copies - 1)]
+    calls = [lambda a=a: fn(*a) for a in sets]
+    reps = copies * math.ceil(GRAPH_REPS / copies)
+    return _replay_ms([calls[i % copies] for i in range(reps)], sync,
+                      keep=True)
+
+
+def start_floor_build(nvcc: str, flags, out: Path):
+    """nvcc on FLOOR_SRC into ``out``/floor.so, started, not waited for:
+    ``(process, library path)``."""
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "floor.cu"
+    src.write_text(FLOOR_SRC)
+    lib = out / "floor.so"
+    return subprocess.Popen([nvcc, *flags, "-shared", "-o", str(lib),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_floor(proc, lib: Path):
+    """The library FLOOR_SRC built into, its entry declared."""
+    import ctypes
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the launch floor's kernel:\n{log}")
+    floor = ctypes.CDLL(str(lib))
+    floor.empty_run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    floor.empty_run.restype = ctypes.c_int
+    return floor
 
 
 def main() -> int:
@@ -526,8 +651,11 @@ def main() -> int:
 
     # ---------------- 2. build ----------------
     t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    floor_build = start_floor_build(_build._nvcc(), _build.NVCC_FLAGS, work)
     path, log = _build.build()
     _build.load_library()
+    floor_lib = load_floor(*floor_build)
     say("build", f"{time.perf_counter() - t0:.2f} s -> {path.name}"
                  f"{' (cached)' if not log else ''}")
     for line in log.splitlines():
@@ -567,6 +695,36 @@ def main() -> int:
             raise RuntimeError("parity-step: the wide view differs")
         say("parity-step", f"{name} wide (64, {n8 // 8}) view: bit-identical")
         del xi, de, out, ref, xw, dw, wide, narrow
+    # f64 outside the range of the step's f32 Newton phase, one step from
+    # rest on the materials of range_scalars: against the plain step and
+    # the yield condition, (a) also against RANGE_SCALE times the step on
+    # the headline material (which takes the f32 phase)
+    sc64 = scalars[torch.float64]
+    xi, de = zero_state(N_HIST, torch.float64), increment(N_HIST,
+                                                         torch.float64)
+    unscaled = cuda_rr.soa_step_scalars_cuda(xi, de, sc64)
+    for label, sc in range_scalars(sc64).items():
+        out = cuda_rr.soa_step_scalars_cuda(xi, de, sc)
+        check_rows("parity-step", f"float64 {label} N={N_HIST} vs the plain "
+                   f"step", out, soa_step_scalars(xi, de, sc),
+                   STEP_BOUND["float64"])
+        plastic = out[6] > xi[6]
+        if not bool(plastic.any()):
+            raise RuntimeError(f"parity-step: {label}: no point yields")
+        resid = yield_residual(out, plastic, sc)
+        say("parity-step", f"float64 {label}: {int(plastic.sum())} of "
+                           f"{N_HIST} points yield; max |phi - Y - H(alpha)| "
+                           f"/ Y {resid:.3e} (bound {YIELD_TOL:g})")
+        if not resid <= YIELD_TOL:
+            raise RuntimeError(f"parity-step: {label}: yield condition "
+                               f"missed")
+        if label.startswith("a"):
+            k = out.new_tensor([RANGE_SCALE] * 6 + [1.0, 1.0])[:, None]
+            check_rows("parity-step", f"float64 {label} vs {RANGE_SCALE:g} "
+                       f"x the headline material's", out, k * unscaled,
+                       RANGE_BOUND)
+        del out
+    del xi, de, unscaled
     # the step at the FE dispatch's shape
     xi, de = advanced(N_FE, torch.float64)
     results["step_err"] = check_rows(
@@ -1181,13 +1339,51 @@ def main() -> int:
         """Best of ROUNDS rounds of REPS calls of ``fn()``, ms per call."""
         return best_ms(lambda _x: fn(), None, sync)
 
-    def fe_unit_times(phase, bundle, state, stats):
+    def step_floor(n):
+        """An empty kernel on K1's grid for n points at the FE notch's
+        shape (K1_THREADS): its launch floor."""
+        rc = floor_lib.empty_run(-(-n // K1_THREADS), K1_THREADS,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch floor: CUDA error {rc}")
+
+    def k1_sets(phase, n, sc):
+        """j2_soa_step at the FE shape on two sets beside the notch's own
+        inputs: every point elastic, and every point plastic, from rest
+        (the increment scaled so that each point's trial Mises stress is
+        below Y / 2, or above 2 Y), against the plain step and timed warm
+        and cold on the device."""
+        mu, Y = float(sc[0]), float(sc[2])
+        x0 = zero_state(n, sc.dtype)
+        de = increment(n, sc.dtype)
+        p = (de[0] + de[3] + de[5]) / 3.0
+        phi = 2.0 * mu * torch.sqrt(1.5 * (
+            (de[0] - p) ** 2 + (de[3] - p) ** 2 + (de[5] - p) ** 2
+            + 2.0 * (de[1] ** 2 + de[2] ** 2 + de[4] ** 2)))
+        for label, k, want in (("all-elastic", 0.5 * Y / float(phi.max()), 0),
+                               ("all-plastic", 2.0 * Y / float(phi.min()),
+                                n)):
+            dk = k * de
+            out = cuda_rr.soa_step_scalars_cuda(x0, dk, sc)
+            check_rows(phase, f"j2_soa_step {label} N={n}", out,
+                       soa_step_scalars(x0, dk, sc), STEP_BOUND["float64"])
+            plastic = int((out[6] > 0).sum())
+            if plastic != want:
+                raise RuntimeError(f"{phase}: the {label} set has {plastic} "
+                                   f"plastic points of {n}")
+            warm = graph_ms(
+                lambda dk=dk: cuda_rr.soa_step_scalars_cuda(x0, dk, sc), sync)
+            cold = cold_ms(cuda_rr.soa_step_scalars_cuda, (x0, dk, sc), sync)
+            say(phase, f"j2_soa_step {label} N={n} ({plastic} plastic): "
+                       f"device {cold:.4f} ms cold, {warm:.4f} ms warm")
+
+    def fe_unit_times(phase, bundle, state, stats, with_floor=False):
         """Times of the step's parts at the last step of the drive: one
         assembly with its embedded-BC pair, K1 alone and its plain version
-        (with their parity; device times from a CUDA graph, and K1's
-        wrapper timed from the host), the two-level setup and one
-        two-level CG solve of the step's first Newton system at the
-        solver's rtol floor."""
+        (with their parity; device times from a CUDA graph, warm and cold,
+        K1's launch floor ``with_floor``, and K1's wrapper timed from the
+        host), the two-level setup and one two-level CG solve of the
+        step's first Newton system at the solver's rtol floor."""
         fe = bundle.fe_problem
         ka = fe.kernel_arrays
         dtp = fe.dtype
@@ -1226,9 +1422,15 @@ def main() -> int:
             k1_plastic = int((out[6] > xs[6]).sum())
             k1_ms = graph_ms(
                 lambda: cuda_rr.soa_step_scalars_cuda(xs, ds, sc), sync)
+            k1_cold = cold_ms(cuda_rr.soa_step_scalars_cuda, (xs, ds, sc),
+                              sync)
+            k1_floor = (graph_ms(lambda: step_floor(xs.shape[1]), sync)
+                        if with_floor else None)
             k1_plain = graph_ms(lambda: soa_step_scalars(xs, ds, sc), sync)
+            k1_plain_cold = cold_ms(soa_step_scalars, (xs, ds, sc), sync)
             k1_host = ms_of(
                 lambda: cuda_rr.soa_step_scalars_cuda(xs, ds, sc))
+            k1_sets(phase, xs.shape[1], sc)
             # the step's first Newton system
             r0, K0, _ = assemble(U_prev)
             lss = bundle.resolved["linear solver"]
@@ -1251,16 +1453,22 @@ def main() -> int:
         b_ms, by, t_bytes, t_ops = bound_ms(
             BYTES_PER_K1_POINT * n, ops["j2_soa_step<double>"], n, k1_plastic)
         per_iter = (solve_ms - setup_ms) / max(iters, 1)
+        floor_note = ("" if k1_floor is None else
+                      f"; launch floor (an empty kernel on its grid, "
+                      f"{-(-n // K1_THREADS)} blocks of {K1_THREADS}, the "
+                      f"same graph) {k1_floor:.4f} ms, so "
+                      f"{k1_cold - k1_floor:.4f} ms cold above it")
         say(phase, f"one assembly (the J2 block with K1, the COO dedup, the "
                    f"embedded-BC pair) {asm_ms:.4f} ms; j2_soa_step "
-                   f"N={n} ({k1_plastic} plastic): device {k1_ms:.4f} ms "
-                   f"per launch ({GRAPH_REPS} launches in a CUDA graph), "
-                   f"plain device {k1_plain:.4f} ms (the same), through "
-                   f"the wrapper from the host {k1_host:.4f} ms (host "
-                   f"dispatch included); bound {b_ms:.4f} ms ({by}; bytes "
-                   f"{t_bytes:.4f} ms at {BYTES_PER_K1_POINT} B per point, "
-                   f"operations {t_ops:.4f} ms) = {b_ms / k1_ms:.1%} of "
-                   f"the device time")
+                   f"N={n} ({k1_plastic} plastic): device {k1_cold:.4f} ms "
+                   f"per launch cold, {k1_ms:.4f} ms warm (the same inputs "
+                   f"again, {GRAPH_REPS} launches in a CUDA graph)"
+                   f"{floor_note}; plain device {k1_plain_cold:.4f} ms "
+                   f"cold, {k1_plain:.4f} warm; through the wrapper from the host {k1_host:.4f} ms "
+                   f"(host dispatch included); bound {b_ms:.4f} ms ({by}; "
+                   f"bytes {t_bytes:.4f} ms at {BYTES_PER_K1_POINT} B per "
+                   f"point, operations {t_ops:.4f} ms) = "
+                   f"{b_ms / k1_cold:.1%} of the cold time")
         say(phase, f"one linear solve (cg + two_level, rtol "
                    f"{floor['rtol']:g}, max iters {floor['max iters']}) of "
                    f"the step's first Newton system: "
@@ -1284,8 +1492,8 @@ def main() -> int:
                    f"the rest "
                    f"(line-search bookkeeping, host) "
                    f"{wall - est_asm - est_solve:.3f} s")
-        return {"k1_ms": k1_ms, "k1_plain": k1_plain, "k1_err": k1_err,
-                "k1_host": k1_host,
+        return {"k1_ms": k1_ms, "k1_cold": k1_cold, "k1_plain": k1_plain,
+                "k1_plain_cold": k1_plain_cold, "k1_err": k1_err,
                 "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n}
 
     # ---------------- fe-notch-small ----------------
@@ -1336,7 +1544,7 @@ def main() -> int:
                     f"err {worst:.3e} (bound {FE_REF_RTOL:g})")
     if not worst <= FE_REF_RTOL:
         raise RuntimeError("fe-notch: the drive misses cmad_tpu's answer")
-    fe_k1 = fe_unit_times("fe-notch", bundle, state, stats)
+    fe_k1 = fe_unit_times("fe-notch", bundle, state, stats, with_floor=True)
     say("fe-notch", f"j2_soa_step launches per step "
                     f"{[s['assemblies'] for s in stats]} at N = "
                     f"{fe_k1['n']}")
@@ -1374,6 +1582,10 @@ def main() -> int:
              "CSR dedup": (fe.embedded_sparsity.dedup_plan, ()),
              "two-level restriction": (two["agg_plan"], (6,)),
              "coarse pairs": (two["pair_plan"], (6, 6))}
+    # each plan by its shape, for fe-grad's launches per plan
+    plan_labels = {(plan.n_entries, plan.n_segments,
+                    int(np.prod(width, dtype=np.int64))): label
+                   for label, (plan, width) in plans.items()}
     for label, (plan, width) in plans.items():
         vals = torch.randn((plan.n_entries, *width), generator=gen,
                            device=dev, dtype=torch.float64)
@@ -1392,10 +1604,15 @@ def main() -> int:
         cpu_ref = torch.zeros(seg_out.shape, dtype=torch.float64).index_add_(
             0, idx.cpu(), src.cpu())
         seg_equal = bool(torch.equal(seg_out.cpu(), cpu_ref))
-        seg_ms = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
-                          sync)
-        lib_ms = graph_ms(lambda: vals.new_zeros(seg_out.shape).index_add_(
-            0, idx, src), sync)
+        seg_warm = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
+                            sync)
+        seg_ms = cold_ms(segsum.segment_sum, (vals, plan, scale), sync)
+
+        def index_add(idx_, src_, shape=seg_out.shape):
+            return src_.new_zeros(shape).index_add_(0, idx_, src_)
+
+        lib_warm = graph_ms(lambda: index_add(idx, src), sync)
+        lib_ms = cold_ms(index_add, (idx, src), sync)
         # the entries the plan sums (the CSR dedup leaves the prescribed
         # rows and columns out), each value, index and output once
         summed = int(plan.sorted_target.shape[0])
@@ -1422,18 +1639,21 @@ def main() -> int:
                            f"x {w} into {plan.n_segments}, longest "
                            f"{plan.max_length}): {path} path; card vs "
                            f"index_add_ on the CPU bit-identical: "
-                           f"{seg_equal}; device time {seg_ms:.4f} ms, "
-                           f"index_add_ on the card {lib_ms:.4f} ms; bound "
-                           f"{seg_bound:.4f} ms (bytes){thread_note}")
+                           f"{seg_equal}; device time {seg_ms:.4f} ms "
+                           f"cold ({seg_warm:.4f} warm), index_add_ on the "
+                           f"card {lib_ms:.4f} ms cold ({lib_warm:.4f} "
+                           f"warm); bound {seg_bound:.4f} ms (bytes) = "
+                           f"{seg_bound / seg_ms:.1%} of the cold time"
+                           f"{thread_note}")
         if not seg_equal:
             raise RuntimeError(f"determinism: segment_sum ({label}) differs "
                                f"from the CPU")
-        if label == "COO dedup":
-            results["segsum"] = (float((seg_out.cpu() - cpu_ref).abs().max()),
-                                 seg_ms, lib_ms, seg_bound)
-        if label == "two-level restriction":
-            results["segsum_block"] = (
-                float((seg_out.cpu() - cpu_ref).abs().max()), seg_ms, lib_ms,
+        if label in ("COO dedup", "two-level restriction"):
+            # the plain version is index_add_ (on the CPU); on the card it
+            # is the library call too
+            results["segsum" if label == "COO dedup" else "segsum_block"] = (
+                float((seg_out.cpu() - cpu_ref).abs().max()),
+                (seg_warm, seg_ms), (lib_warm, lib_ms), (lib_warm, lib_ms),
                 seg_bound)
         del vals, scale, seg_out, cpu_ref, src
     # the CG's product on the step's first Newton system: csr_matvec
@@ -1454,9 +1674,13 @@ def main() -> int:
     y_lib = A @ x
     csr_err = float((y - y_lib).abs().max())
     csr_rel = csr_err / float(y_lib.abs().max())
-    csr_ms = graph_ms(lambda: segsum.csr_matvec_cuda(
+    csr_warm = graph_ms(lambda: segsum.csr_matvec_cuda(
         sp.indptr, sp.col_indices, unique, x), sync)
-    csr_lib = graph_ms(lambda: A @ x, sync)
+    csr_ms = cold_ms(segsum.csr_matvec_cuda,
+                     (sp.indptr, sp.col_indices, unique, x), sync)
+    csr_lib_warm = graph_ms(lambda: A @ x, sync)
+    csr_lib = cold_ms(lambda ip, ci, u, xx: segsum.csr_tensor(
+        ip, ci, u, sp.n) @ xx, (sp.indptr, sp.col_indices, unique, x), sync)
     nnz = sp.num_unique
     csr_bytes = 8 * (2 * nnz + 3 * sp.n + 1)
     csr_bound = max(csr_bytes / HBM_BYTES_PER_S,
@@ -1464,12 +1688,15 @@ def main() -> int:
     say("determinism", f"csr_matvec ({sp.n} rows, {nnz} nonzeros) vs "
                        f"PyTorch's CSR product: max rel err {csr_rel:.3e} "
                        f"(bound {STEP_BOUND['float64']:g}, summation "
-                       f"order); device {csr_ms:.4f} ms, cuSPARSE "
-                       f"{csr_lib:.4f} ms; bound {csr_bound:.4f} ms "
-                       f"(bytes)")
+                       f"order); device {csr_ms:.4f} ms cold "
+                       f"({csr_warm:.4f} warm), cuSPARSE {csr_lib:.4f} ms "
+                       f"cold ({csr_lib_warm:.4f} warm); bound "
+                       f"{csr_bound:.4f} ms (bytes) = "
+                       f"{csr_bound / csr_ms:.1%} of the cold time")
     if not csr_rel <= STEP_BOUND["float64"]:
         raise RuntimeError("determinism: csr_matvec disagrees")
-    results["csr"] = (csr_err, csr_ms, csr_lib, csr_bound)
+    results["csr"] = (csr_err, (csr_warm, csr_ms), (csr_lib_warm, csr_lib),
+                      (csr_lib_warm, csr_lib), csr_bound)
     # the coarse-pair contraction on the same K: the fused kernel
     # (coarse_pair_sum) against coarse_matrix on the CPU bit for bit, and
     # timed beside the composition it replaces (the (nnz, 6, 6) products
@@ -1486,9 +1713,11 @@ def main() -> int:
                           sp.col_indices.cpu())
     pair_equal = (bool(torch.equal(A_card.cpu(), A_cpu))
                   and bool(torch.equal(S.cpu(), S_plain.cpu())))
-    pair_ms = graph_ms(lambda: segsum.coarse_pair_sum(*pair_args), sync)
+    pair_warm = graph_ms(lambda: segsum.coarse_pair_sum(*pair_args), sync)
+    pair_ms = cold_ms(segsum.coarse_pair_sum, pair_args, sync)
     composed_ms = graph_ms(lambda: segsum.coarse_pair_sum_plain(*pair_args),
                            sync)
+    composed_cold = cold_ms(segsum.coarse_pair_sum_plain, pair_args, sync)
     cm_ms = graph_ms(lambda: coarse_matrix(pattern, unique, sp.rows,
                                            sp.col_indices), sync)
     r_o, c_o = sp.rows[two["order"]], sp.col_indices[two["order"]]
@@ -1510,24 +1739,26 @@ def main() -> int:
                        f"coarse pairs x 36, longest {pair_plan.max_length}) "
                        f"on the step's first K: coarse_matrix on the card "
                        f"vs on the CPU bit-identical: {pair_equal}; device "
-                       f"time {pair_ms:.4f} ms, the composition it replaces "
+                       f"time {pair_ms:.4f} ms cold ({pair_warm:.4f} warm), "
+                       f"the composition it replaces "
                        f"(PyTorch's products, then segment_sum) "
-                       f"{composed_ms:.4f} ms, index_add_ of the "
+                       f"{composed_cold:.4f} ms cold ({composed_ms:.4f} "
+                       f"warm), index_add_ of the "
                        f"materialized products on the card {pair_lib:.4f} "
                        f"ms; coarse_matrix as a whole {cm_ms:.4f} ms; "
-                       f"bound {pair_bound:.4f} ms (bytes)")
+                       f"bound {pair_bound:.4f} ms (bytes) = "
+                       f"{pair_bound / pair_ms:.1%} of the cold time")
     if not pair_equal:
         raise RuntimeError("determinism: coarse_pair_sum differs from the "
                            "CPU's coarse_matrix")
-    results["pair"] = (float((S.cpu() - S_plain.cpu()).abs().max()), pair_ms,
-                       composed_ms, pair_bound)
+    results["pair"] = (float((S.cpu() - S_plain.cpu()).abs().max()),
+                       (pair_warm, pair_ms), (composed_ms, composed_cold),
+                       (None, None), pair_bound)
     del K0, unique, x, A, y, y_lib, S, S_plain, A_card, A_cpu
     sync()
     lap("determinism")
 
     # ---------------- fe-grad-small ----------------
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
 
     def grad_deck(mesh, solver, data_file, tol=None):
         """The notch deck at Y = GRAD_Y, Y active under the log
@@ -1611,7 +1842,18 @@ def main() -> int:
         wall = time.perf_counter() - t0
         if k == 0:
             grad_counts = read_counts()
+            # the segment sums' launches by plan, as their wrapper counts
+            # them where it launches
+            per_plan = {
+                f"{plan_labels.get(key[:3], key[:3])} ({key[3]})": v
+                for key, v in segsum.plan_launches.items()}
         runs.append((J, g.copy(), gstats, wall))
+    say("fe-grad", f"segment_sum launches per plan and path in a gradient "
+                   f"evaluation: {per_plan}")
+    if sum(per_plan.values()) != (grad_counts["segment_sum"]
+                                  + grad_counts["segment_sum_block"]):
+        raise RuntimeError(f"fe-grad: the plans' launches {per_plan} do not "
+                           f"add up to {grad_counts}")
     (J, g, gstats, wall), (J2, g2, _gs2, wall2) = runs
     ref_rel = (abs(J - FE_GRAD_REF_J) / abs(FE_GRAD_REF_J),
                abs(float(g[0]) - FE_GRAD_REF_DJ_DC) / abs(FE_GRAD_REF_DJ_DC))
@@ -1764,59 +2006,62 @@ def main() -> int:
             (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double, 8>"],
             N_DRIVE * T_DRIVE, sum(hist_plastic)),
         "j2_soa_history_iters": r_bound,
-        "segment_sum": (results["segsum"][3], "bytes"),
-        "segment_sum_block": (results["segsum_block"][3], "bytes"),
-        "coarse_pair_sum": (results["pair"][3], "bytes"),
-        "csr_matvec": (results["csr"][3], "bytes"),
+        "segment_sum": (results["segsum"][4], "bytes"),
+        "segment_sum_block": (results["segsum_block"][4], "bytes"),
+        "coarse_pair_sum": (results["pair"][4], "bytes"),
+        "csr_matvec": (results["csr"][4], "bytes"),
     }
-    # (name, source, replaces, max abs err, ms, plain ms, library ms)
+    # (name, source, replaces, max abs err, (ms, cold ms), (plain ms, plain
+    # cold ms), (library ms, library cold ms)): warm, as the path runs it,
+    # and cold (cold_ms), timed the same way for the kernel, its plain
+    # version and the library call. The kernels outside the FE path run on
+    # inputs larger than twice the L2, so every call of theirs reads its
+    # inputs from device memory: their time is their cold time
     rows = [("j2_soa_step", SOURCE, f"{PALLAS}:173", fe_k1["k1_err"],
-             fe_k1["k1_ms"], fe_k1["k1_plain"], None),
+             (fe_k1["k1_ms"], fe_k1["k1_cold"]),
+             (fe_k1["k1_plain"], fe_k1["k1_plain_cold"]), (None, None)),
             ("j2_soa_history", SOURCE, f"{PALLAS}:464", results["hist_err"],
-             drive_ms, drive_plain, None)]
+             (drive_ms,) * 2, (drive_plain,) * 2, (None, None))]
     for form, kname, line, nbytes in (("rate", "j2_aos_step", 40, 328),
                                       ("total", "j2_total_step", 624, 256)):
         ms, _entry, plain_t, plastic1 = timings[("mp", form, "float64")]
         bounds[kname] = bound_ms(nbytes * N_MP, ops[f"{kname}<double>"],
                                  N_MP, plastic1)
         rows.append((kname, SOURCE, f"{PALLAS}:{line}",
-                     results[f"{form}_err"], ms, plain_t, None))
+                     results[f"{form}_err"], (ms,) * 2, (plain_t,) * 2,
+                     (None, None)))
     r_err, r_ms, r_plain = results["roofline"]
-    seg_err, seg_ms, seg_lib, _sb = results["segsum"]
-    blk_err, blk_ms, blk_lib, _bb = results["segsum_block"]
-    pair_err, pair_ms, pair_plain, _pb = results["pair"]
-    csr_err, csr_ms, csr_lib, _cb = results["csr"]
-    rows += [("j2_soa_history_iters", SOURCE, f"{ROOFLINE}:40", r_err, r_ms,
-              r_plain, None),
+    rows += [("j2_soa_history_iters", SOURCE, f"{ROOFLINE}:40", r_err,
+              (r_ms,) * 2, (r_plain,) * 2, (None, None)),
              ("segment_sum", SEGSUM_SOURCE,
               "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
-              "assembly.py, sparse_solve.py", seg_err, seg_ms, seg_lib,
-              seg_lib),
+              "assembly.py, sparse_solve.py", *results["segsum"][:4]),
              ("segment_sum_block", SEGSUM_SOURCE,
               "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
               "two_level.py _apply_PT; JAX: cmad_tpu/fem/two_level.py:269",
-              blk_err, blk_ms, blk_lib, blk_lib),
+              *results["segsum_block"][:4]),
              ("coarse_pair_sum", SEGSUM_SOURCE,
               "PyTorch product + segment_sum (no Pallas kernel): "
               "cmad_tpu_torch/fem/two_level.py coarse_matrix; JAX: "
-              "cmad_tpu/fem/two_level.py:314", pair_err, pair_ms, pair_plain,
-              None),
+              "cmad_tpu/fem/two_level.py:314", *results["pair"][:4]),
              ("csr_matvec", SEGSUM_SOURCE,
               "torch.sparse_csr_tensor @ x (no Pallas kernel): "
-              "cmad_tpu_torch/fem/sparse_solve.py", csr_err, csr_ms, csr_lib,
-              csr_lib)]
-    for kname, _src, _rep, _err, ms, _plain, _lib in rows:
+              "cmad_tpu_torch/fem/sparse_solve.py", *results["csr"][:4])]
+    for kname, _src, _rep, _err, (ms, cold), _plain, _lib in rows:
         b_ms, by = bounds[kname][:2]
         say("launches", f"{kname}: bound {b_ms:.4f} ms ({by}); kernel "
-                        f"{ms:.4f} ms = {b_ms / ms:.1%} of the bound")
+                        f"{cold:.4f} ms cold ({ms:.4f} warm) = "
+                        f"{b_ms / cold:.1%} of the bound")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[kname], "max_abs_err": err, "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],
-         "bound_by": bounds[kname][1], "library_ms": lib}
-        for kname, src, rep, err, ms, plain_t, lib in rows]}), flush=True)
+         "bound_by": bounds[kname][1], "library_ms": lib, "cold_ms": cold,
+         "plain_cold_ms": plain_cold, "library_cold_ms": lib_cold}
+        for kname, src, rep, err, (ms, cold), (plain_t, plain_cold),
+        (lib, lib_cold) in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -18,9 +18,9 @@
 //   j2_aos_step    <- _kernel (K4), the rate-form step on the AoS state.
 //   j2_total_step  <- _kernel_total (K5), the total-form step.
 //
-// The first two read the component-major (SoA) layout described below;
-// the AoS kernels, which share one staged tile loop, are described where
-// they are defined.
+// The first two read the component-major (SoA) layout described below and
+// share one update, soa_rows; the AoS kernels, which share one staged tile
+// loop, are described where they are defined.
 //
 // Layout (component-major, contract in ops/j2_radial_return.py): row r of
 // point j sits at r*N + j. Consecutive threads own consecutive points, so
@@ -33,24 +33,22 @@
 // pointer and are loaded by every thread (broadcast through the read-only
 // cache), so no host sync is needed to launch a step.
 //
-// What bounds j2_soa_step on an H100 (3.35 TB/s HBM3 at 700 W): memory.
-// It moves 6 + 7 reads and 8 writes per update (168 B in f64, 84 B in
-// f32), one thread per point.
-//
-// The arithmetic follows _radial_rows (pallas_radial_return.py:123-170)
-// op for op. nvcc contracts a*b+c into FMAs (no --use_fast_math: expf
-// stays the accurate one), so results differ from the plain PyTorch
-// version by rounding only.
+// The AoS kernels' arithmetic follows _radial_rows
+// (pallas_radial_return.py:123-170) op for op; the SoA kernels' reaches
+// the same Newton fixed point by a shorter path (soa_newton). nvcc
+// contracts a*b+c into FMAs (no --use_fast_math: expf stays the accurate
+// one), so results differ from the plain PyTorch version by rounding only.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int kNewtonIters = 8;  // _SCALAR_NEWTON_ITERS
 constexpr int kRows = 8;
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
@@ -177,50 +175,22 @@ __device__ __forceinline__ void store_state(T* __restrict__ out, const T x[7],
   out[7 * n + j] = T(0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-j2_soa_step_kernel(const T* __restrict__ xi, const T* __restrict__ de,
-                   const T* __restrict__ scalars, T* __restrict__ out,
-                   int64_t n) {
-  const Material<T> m = load_material(scalars);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    T x[7];
-    T e[6];
-#pragma unroll
-    for (int r = 0; r < 7; ++r) x[r] = xi[r * n + j];
-#pragma unroll
-    for (int r = 0; r < 6; ++r) e[r] = de[r * n + j];
-    radial_rows(x, e, m);
-    store_state(out, x, j, n);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// j2_soa_history (K2, K3; K7, K8 as views): the whole strain history of a
-// point in one thread. The TPU kernel carried the state across its
-// sequential grid axis in VMEM; here blocks run in no order, so the loop
-// over T lives inside the thread and the state stays in registers, and
-// the strain of the next steps is loaded before the current step is
-// computed. Row 7 of the output is written as zero (K2 passed the
-// input's pad row through; every caller's pad row is zero).
+// soa_rows: the update of the SoA kernels (j2_soa_step, j2_soa_history):
+// radial_rows' trial stress, yield check and radial corrector, with a
+// shorter path to the Newton's fixed point.
 //
-// What bounds it on an H100: on plastic data, instructions, not bytes.
-// It reads strain rows 0-5 of each step and the state once, 48 + 120/T B
-// per update in f64 (24 + 60/T in f32), 2.00 ms at 2,097,152 points x 64
-// steps; with j2_corrector's arithmetic a drive in which no point yields
-// ran at 89% of that and an all-plastic one took 2.7x as long. A plastic
-// update adds 8 Newton iterations, each an exp (in f64 a 14-FMA
-// polynomial, its constants rematerialised, about 35 instructions) and
-// an IEEE divide (MUFU.RCP64H, 7 FP64 instructions and a range check):
-// 480 f64 operations and about 1,000 instructions in the SASS, against
-// 118 operations for an elastic update. Two points per thread with their
-// Newton iterations interleaved, or 50% occupancy, did not shorten it:
-// the schedulers' one instruction a cycle and the FP64 pipe (2 cycles a
-// warp instruction) bound it.
+// What it is up against: with j2_corrector's Newton a plastic update adds
+// 8 iterations, each an exp (in f64 a 14-FMA polynomial, its constants
+// rematerialised, about 35 instructions) and an IEEE divide (MUFU.RCP64H,
+// 7 FP64 instructions and a range check): 480 f64 operations and about
+// 1,000 instructions in the SASS, against 118 for an elastic update. The
+// schedulers' one instruction a cycle and the FP64 pipe (2 cycles a warp
+// instruction) then set the pace: the f64 history on plastic data took
+// 2.7x its all-elastic time, and one step at the FE notch's 47,628 points
+// spent longer issuing its Newton than moving its bytes.
 //
-// What the design does about it: fewer instructions for the same fixed
+// What soa_newton does about it: fewer instructions for the same fixed
 // point, the 8 iterations kept.
 // - Iteration 0 reuses exp(-D alpha_prev) from the yield check (dg = 0
 //   there, and alpha_prev + 0 only flips the sign of a zero).
@@ -234,30 +204,16 @@ j2_soa_step_kernel(const T* __restrict__ xi, const T* __restrict__ de,
 //   and S D within kF32Range (below). A point outside it (a trial stress
 //   beyond f32's range, or S D above it) would leave the f32 phase with a
 //   meaningless dg, and silently so: fmaxf(NaN, 0) is 0. It takes the
-//   slow path history_newton_exact instead, j2_corrector's Newton in f64,
-//   and is classified and updated as in j2_soa_step.
+//   slow path soa_newton_exact instead, j2_corrector's Newton in f64.
 // - Every iteration but the last divides with a fast reciprocal (f64:
 //   MUFU.RCP64H and one cubic refinement; f32: __fdividef); the last one
 //   is the exact IEEE divide, as j2_corrector's.
-// - No launch bound below the registers this takes (116 in f64): a
-//   smaller cap spilled inside the Newton and doubled the time. The 16
-//   warps per SM that 116 registers leave keep two steps of strain in
-//   flight each (the loop is unrolled by two, so no register copy waits
-//   on a load), and the grid is balanced so that no last round runs with
-//   a few blocks alone: an all-elastic drive keeps its bytes' time.
-// The yield check, trial stress and radial scale are j2_corrector's, so a
-// point is classified as in j2_soa_step; the result differs from T
-// chained j2_soa_step launches by rounding only.
+// A plastic f64 update adds about 122 f64 operations instead of 480. The
+// yield check, trial stress and radial scale are radial_rows' in its
+// order of operations, so a point is classified exactly as there.
 // ---------------------------------------------------------------------------
 
-constexpr int kHistThreads = 256;
-constexpr int kHistMinBlocks = 2;  // per SM: caps registers at 128
-constexpr int kF32Iters = 6;       // f64: Newton iterations run in f32
-// strain steps in flight: two in f64, one in f32 (whose 48 registers
-// leave 40 warps per SM; a second buffer made its all-elastic drive 5%
-// slower)
-template <typename T>
-constexpr int kHistAhead = sizeof(T) == 8 ? 2 : 1;
+constexpr int kF32Iters = 6;  // f64: Newton iterations run in f32
 
 // The corrector's constants, hoisted out of the loops.
 template <typename T>
@@ -313,16 +269,34 @@ __device__ __forceinline__ float f32_phase_limit(const Voce<float>& v) {
   return ok ? kF32Range : -1.f;
 }
 
+// The material's constants as the SoA update takes them, computed once
+// per thread: the material, its hoisted constants in T and in f32, and
+// f32_phase_limit of the latter.
+template <typename T>
+struct SoaMaterial {
+  Material<T> m;
+  Voce<T> v;
+  Voce<float> vf;
+  float f32_limit;
+};
+
+template <typename T>
+__device__ __forceinline__ SoaMaterial<T> soa_material(
+    const T* __restrict__ scalars) {
+  const Material<T> m = load_material(scalars);
+  const Voce<float> vf = voce<float>(m);
+  return SoaMaterial<T>{m, voce<T>(m), vf, f32_phase_limit(vf)};
+}
+
 // The plastic multiplier of a yielding point: Iters Newton iterations
 // from dg = 0, ex0 = exp(-D alpha), the last one with the exact divide
 // (kNewtonIters = 8 everywhere but the roofline sweep).
 template <int Iters>
-__device__ __forceinline__ float history_newton(float phi, float alpha,
-                                                float ex0,
-                                                const Material<float>&,
-                                                const Voce<float>& v,
-                                                const Voce<float>&, float) {
+__device__ __forceinline__ float soa_newton(float phi, float alpha,
+                                            float ex0,
+                                            const SoaMaterial<float>& sm) {
   static_assert(Iters >= 1, "at least one Newton iteration");
+  const Voce<float>& v = sm.v;
   const float c = phi - v.ys;
   float dg = 0.f;
 #pragma unroll
@@ -337,22 +311,20 @@ __device__ __forceinline__ float history_newton(float phi, float alpha,
 // range: j2_corrector's Newton, all in f64. Not inlined, like the IEEE
 // divide's slow path: it stays out of the hot loop's code, and out of the
 // operations that ops/_sass.py counts per update.
-__device__ __noinline__ double history_newton_exact(double phi, double alpha,
-                                                    double mu, double Y,
-                                                    double S, double D) {
+__device__ __noinline__ double soa_newton_exact(double phi, double alpha,
+                                                double mu, double Y,
+                                                double S, double D) {
   return voce_newton(phi, alpha, Material<double>{mu, 0.0, Y, S, D});
 }
 
-// f32_limit: f32_phase_limit(vf), computed once per thread. The f64
-// Newton runs kNewtonIters iterations only.
+// The f64 Newton runs kNewtonIters iterations only.
 template <int Iters>
-__device__ __forceinline__ double history_newton(double phi, double alpha,
-                                                 double ex0,
-                                                 const Material<double>& m,
-                                                 const Voce<double>& v,
-                                                 const Voce<float>& vf,
-                                                 float f32_limit) {
+__device__ __forceinline__ double soa_newton(double phi, double alpha,
+                                             double ex0,
+                                             const SoaMaterial<double>& sm) {
   static_assert(Iters == kNewtonIters, "the f64 Newton runs 8 iterations");
+  const Voce<double>& v = sm.v;
+  const Voce<float>& vf = sm.vf;
   const double c = phi - v.ys;
   const float cf = static_cast<float>(c), af = static_cast<float>(alpha);
   float dgf = 0.f;
@@ -371,20 +343,19 @@ __device__ __forceinline__ double history_newton(double phi, double alpha,
   // Outside the f32 phase's range this dg is meaningless: replace it.
   // Tested here, on the phase's inputs, and not before the phase, so that
   // the points in range run the phase with no branch around it.
-  if (!(fabsf(cf) <= f32_limit)) {
-    dg = history_newton_exact(phi, alpha, m.mu, m.Y, m.S, m.D);
+  if (!(fabsf(cf) <= sm.f32_limit)) {
+    const Material<double>& m = sm.m;
+    dg = soa_newton_exact(phi, alpha, m.mu, m.Y, m.S, m.D);
   }
   return dg;
 }
 
-// radial_rows for the history: the same trial stress, yield check and
-// corrector, with the Newton of history_newton.
+// radial_rows with the Newton of soa_newton: the same trial stress, yield
+// check and corrector, in the same order of operations.
 template <typename T, int Iters>
-__device__ __forceinline__ void history_rows(T x[7], const T e[6],
-                                             const Material<T>& m,
-                                             const Voce<T>& v,
-                                             const Voce<float>& vf,
-                                             float f32_limit) {
+__device__ __forceinline__ void soa_rows(T x[7], const T e[6],
+                                         const SoaMaterial<T>& sm) {
+  const Material<T>& m = sm.m;
   const T tr = e[0] + e[3] + e[5];
   const T two_mu = T(2) * m.mu;
   const T diag = m.lam * tr;
@@ -402,7 +373,7 @@ __device__ __forceinline__ void history_rows(T x[7], const T e[6],
   T dg = T(0);
   T scale = T(0);
   if (plastic) {
-    dg = history_newton<Iters>(phi_tr, alpha_prev, ex0, m, v, vf, f32_limit);
+    dg = soa_newton<Iters>(phi_tr, alpha_prev, ex0, sm);
     const T safe_phi = phi_tr > T(0) ? phi_tr : T(1);
     scale = T(3) * m.mu * dg / safe_phi;
   }
@@ -415,15 +386,105 @@ __device__ __forceinline__ void history_rows(T x[7], const T e[6],
   x[6] = alpha_prev + dg;
 }
 
+// ---------------------------------------------------------------------------
+// j2_soa_step (K1; K6 as a view): one step of every point, one thread per
+// point, soa_rows in a stride loop.
+//
+// What bounds it on an H100 (3.35 TB/s HBM3 at 700 W): it reads rows 0-6
+// of xi and 0-5 of de and writes 8 rows, 168 B per update in f64 (84 B in
+// f32). At 4,194,304 points that is 0.21 ms of memory, and the memory
+// bounds it. At the FE notch's 47,628 points (every assembly launches it
+// once) the byte bound is 2.4 us, and an empty kernel on the same grid
+// takes 1.4-1.6 us a launch in a CUDA graph: there the time is the
+// launch, the loads' latency and the dependent chain of one plastic
+// update on the busiest SM (f64: 3,367 cycles with j2_corrector's Newton,
+// 1,803 with soa_newton), which tools/torch_kernel_probe.py --cases
+// j2_soa_step measures beside the kernel.
+//
+// What the design does about it:
+// - soa_rows: a plastic f64 update's Newton in about a quarter of the
+//   f64 operations of j2_corrector's and half its latency, so that at
+//   the FE shape the busiest SM's issue time stays below the chain's
+//   latency, and at large N the arithmetic hides under the memory;
+// - blocks of kStepThreads = 128 on a balanced grid: at the FE shape 373
+//   blocks, no SM with more than 3 (12 warps, the least any split of
+//   1,489 warps over 132 SMs allows), where 256-thread blocks put 16
+//   warps on 55 SMs and 8 on the rest; at large N every block takes the
+//   same number of rounds of the stride loop;
+// - no launch bound below the registers soa_rows takes (kStepMinBlocks):
+//   86 in f64, 5 blocks an SM; caps at 80 and 64 spilled and were slower
+//   at 4,194,304 points, and so was a second point's rows in flight
+//   (128 registers, 4 blocks).
+// ---------------------------------------------------------------------------
+
+constexpr int kStepThreads = 128;
+// per SM: caps registers at 128 in f64, 64 in f32
+template <typename T>
+constexpr int kStepMinBlocks = sizeof(T) == 8 ? 4 : 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks<T>)
+j2_soa_step_kernel(const T* __restrict__ xi, const T* __restrict__ de,
+                   const T* __restrict__ scalars, T* __restrict__ out,
+                   int64_t n) {
+  const SoaMaterial<T> sm = soa_material(scalars);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < n; j += stride) {
+    T x[7];
+    T e[6];
+#pragma unroll
+    for (int r = 0; r < 7; ++r) x[r] = xi[r * n + j];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) e[r] = de[r * n + j];
+    soa_rows<T, kNewtonIters>(x, e, sm);
+    store_state(out, x, j, n);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// j2_soa_history (K2, K3; K7, K8 as views): the whole strain history of a
+// point in one thread. The TPU kernel carried the state across its
+// sequential grid axis in VMEM; here blocks run in no order, so the loop
+// over T lives inside the thread and the state stays in registers, and
+// the strain of the next steps is loaded before the current step is
+// computed. Row 7 of the output is written as zero (K2 passed the
+// input's pad row through; every caller's pad row is zero).
+//
+// What bounds it on an H100: on plastic data, instructions, not bytes.
+// It reads strain rows 0-5 of each step and the state once, 48 + 120/T B
+// per update in f64 (24 + 60/T in f32), 2.00 ms at 2,097,152 points x 64
+// steps; with j2_corrector's Newton a drive in which no point yields ran
+// at 89% of that and an all-plastic one took 2.7x as long. Two points per
+// thread with their Newton iterations interleaved, or 50% occupancy, did
+// not shorten it.
+//
+// What the design does about it: soa_rows (above), and
+// - no launch bound below the registers this takes (116 in f64): a
+//   smaller cap spilled inside the Newton and doubled the time. The 16
+//   warps per SM that 116 registers leave keep two steps of strain in
+//   flight each (the loop is unrolled by two, so no register copy waits
+//   on a load), and the grid is balanced so that no last round runs with
+//   a few blocks alone: an all-elastic drive keeps its bytes' time.
+// The update is j2_soa_step's, so the result equals T chained j2_soa_step
+// launches (bit for bit on an H100, f64 and f32: chip_smoke.py's
+// parity-history).
+// ---------------------------------------------------------------------------
+
+constexpr int kHistThreads = 256;
+constexpr int kHistMinBlocks = 2;  // per SM: caps registers at 128
+// strain steps in flight: two in f64, one in f32 (whose 48 registers
+// leave 40 warps per SM; a second buffer made its all-elastic drive 5%
+// slower)
+template <typename T>
+constexpr int kHistAhead = sizeof(T) == 8 ? 2 : 1;
+
 template <typename T, int Iters>
 __global__ void __launch_bounds__(kHistThreads, kHistMinBlocks)
 j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
                       const T* __restrict__ scalars, T* __restrict__ out,
                       int64_t n, int64_t t_steps) {
-  const Material<T> m = load_material(scalars);
-  const Voce<T> v = voce<T>(m);
-  const Voce<float> vf = voce<float>(m);
-  const float f32_limit = f32_phase_limit(vf);
+  const SoaMaterial<T> sm = soa_material(scalars);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t step_stride = kRows * n;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -444,7 +505,7 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = next[r];
         if (t + 1 < t_steps) load(next, t + 1);
-        history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
+        soa_rows<T, Iters>(x, e, sm);
       }
     } else {
       // steps t + 1 and t + 2 in flight while step t is computed: the
@@ -458,12 +519,12 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 #pragma unroll
         for (int r = 0; r < 6; ++r) e[r] = even[r];
         if (t + 2 < t_steps) load(even, t + 2);
-        history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
+        soa_rows<T, Iters>(x, e, sm);
         if (t + 1 < t_steps) {
 #pragma unroll
           for (int r = 0; r < 6; ++r) e[r] = odd[r];
           if (t + 3 < t_steps) load(odd, t + 3);
-          history_rows<T, Iters>(x, e, m, v, vf, f32_limit);
+          soa_rows<T, Iters>(x, e, sm);
         }
       }
     }
@@ -483,7 +544,7 @@ j2_soa_history_kernel(const T* __restrict__ xi, const T* __restrict__ de_hist,
 // What bounds them on an H100 (3.35 TB/s HBM3 at 700 W): memory.
 // j2_aos_step reads 7 + 9 + 9 and writes 7 + 9 values per point (328 B in
 // f64, 164 B in f32); j2_total_step reads 7 + 9 and writes 7 + 9 (256 B
-// in f64, 128 B in f32). The Newton corrector is as in the SoA kernels.
+// in f64, 128 B in f32). The Newton corrector is j2_corrector's.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -703,49 +764,18 @@ j2_total_step_kernel(const T* __restrict__ xi, const T* __restrict__ grad_u,
       xi_out, sigma_out, n);
 }
 
-// Enough blocks of `threads` to fill every SM at the kernel's occupancy,
-// and no more than `needed`; the kernels' stride loops cover the rest.
-template <typename Kernel>
-int grid_for(Kernel kernel, int threads, int64_t needed) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  const int64_t full = static_cast<int64_t>(sms > 0 ? sms : 1) *
-                       (per_sm > 0 ? per_sm : 1);
-  return static_cast<int>(needed < full ? needed : full);
-}
-
-// The grid of a stride loop over `needed` block-sized pieces of work,
-// with every block taking the same number of pieces: as many rounds as
-// grid_for's full grid needs, and no more blocks than those rounds need.
-// A full grid that leaves a last round to a few blocks (8192 pieces on
-// 264 blocks: 31 rounds and 8 blocks alone in a 32nd) runs that round
-// with the card nearly idle.
-template <typename Kernel>
-int balanced_grid(Kernel kernel, int threads, int64_t needed) {
-  const int64_t full = grid_for(kernel, threads, needed);
-  const int64_t rounds = (needed + full - 1) / full;
-  return static_cast<int>((needed + rounds - 1) / rounds);
-}
-
-// The shared-memory kernel asks for the largest carveout, so that as many
-// blocks fit on an SM as its registers allow.
-template <typename Kernel>
-void prefer_shared(Kernel kernel) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-}
-
 template <typename T>
 int launch_step(const void* xi, const void* de, const void* scalars, void* out,
                 long long n, void* stream) {
   if (n <= 0) return 0;
-  const int grid = grid_for(j2_soa_step_kernel<T>, kThreads,
-                            (n + kThreads - 1) / kThreads);
-  j2_soa_step_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xi), static_cast<const T*>(de),
-      static_cast<const T*>(scalars), static_cast<T*>(out), n);
+  static FullGrid full;
+  const int grid = balanced_grid(
+      full.blocks(j2_soa_step_kernel<T>, kStepThreads),
+      (n + kStepThreads - 1) / kStepThreads);
+  j2_soa_step_kernel<T>
+      <<<grid, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(xi), static_cast<const T*>(de),
+          static_cast<const T*>(scalars), static_cast<T*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -753,8 +783,10 @@ template <typename T, int Iters = kNewtonIters>
 int launch_history(const void* xi, const void* de_hist, const void* scalars,
                    void* out, long long n, long long t_steps, void* stream) {
   if (n <= 0) return 0;
-  const int grid = balanced_grid(j2_soa_history_kernel<T, Iters>, kHistThreads,
-                                 (n + kHistThreads - 1) / kHistThreads);
+  static FullGrid full;
+  const int grid = balanced_grid(
+      full.blocks(j2_soa_history_kernel<T, Iters>, kHistThreads),
+      (n + kHistThreads - 1) / kHistThreads);
   j2_soa_history_kernel<T, Iters>
       <<<grid, kHistThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(xi), static_cast<const T*>(de_hist),
@@ -767,8 +799,8 @@ int launch_aos(const void* xi, const void* grad_u, const void* grad_u_prev,
                const void* scalars, void* xi_out, void* sigma_out,
                long long n, void* stream) {
   if (n <= 0) return 0;
-  prefer_shared(j2_aos_step_kernel<T>);
-  const int grid = grid_for(j2_aos_step_kernel<T>, kAosTile,
+  static FullGrid full;
+  const int grid = grid_for(full.blocks(j2_aos_step_kernel<T>, kAosTile, true),
                             (n + kAosTile - 1) / kAosTile);
   j2_aos_step_kernel<T><<<grid, kAosTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(grad_u),
@@ -781,9 +813,10 @@ template <typename T>
 int launch_total(const void* xi, const void* grad_u, const void* scalars,
                  void* xi_out, void* sigma_out, long long n, void* stream) {
   if (n <= 0) return 0;
-  prefer_shared(j2_total_step_kernel<T>);
-  const int grid = balanced_grid(j2_total_step_kernel<T>, kTotalTile,
-                                 (n + kTotalTile - 1) / kTotalTile);
+  static FullGrid full;
+  const int grid = balanced_grid(
+      full.blocks(j2_total_step_kernel<T>, kTotalTile, true),
+      (n + kTotalTile - 1) / kTotalTile);
   j2_total_step_kernel<T>
       <<<grid, kTotalTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xi), static_cast<const T*>(grad_u),

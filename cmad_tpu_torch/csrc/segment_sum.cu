@@ -70,6 +70,8 @@
 
 #include <cstdint>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -385,19 +387,6 @@ csr_matvec_kernel(const int64_t* __restrict__ indptr,
   }
 }
 
-// Enough blocks to fill every SM at the kernel's occupancy, and no more
-// than `needed`; the stride loops cover the rest.
-template <typename Kernel>
-int grid_for(Kernel kernel, int64_t needed) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const int64_t full = static_cast<int64_t>(sms > 0 ? sms : 1) *
-                       (per_sm > 0 ? per_sm : 1);
-  return static_cast<int>(needed < full ? needed : full);
-}
-
 template <typename T, bool kPerm, bool kScale>
 int launch_segment_sum(const void* vals, const void* perm, const void* offsets,
                        const void* scale, void* out, long long n_segments,
@@ -405,7 +394,9 @@ int launch_segment_sum(const void* vals, const void* perm, const void* offsets,
   const int64_t total = static_cast<int64_t>(n_segments) * width;
   if (total <= 0) return 0;
   auto kernel = segment_sum_kernel<T, kPerm, kScale>;
-  const int grid = grid_for(kernel, (total + kThreads - 1) / kThreads);
+  static FullGrid full;
+  const int grid = grid_for(full.blocks(kernel, kThreads),
+                            (total + kThreads - 1) / kThreads);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals), static_cast<const int64_t*>(perm),
       static_cast<const int64_t*>(offsets), static_cast<const T*>(scale),
@@ -534,7 +525,9 @@ int launch_csr_matvec(const void* indptr, const void* cols, const void* data,
                       const void* x, void* y, long long n_rows, void* stream) {
   if (n_rows <= 0) return 0;
   auto kernel = csr_matvec_kernel<T>;
-  const int grid = grid_for(kernel, (n_rows + kThreads - 1) / kThreads);
+  static FullGrid full;
+  const int grid = grid_for(full.blocks(kernel, kThreads),
+                            (n_rows + kThreads - 1) / kThreads);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(indptr), static_cast<const int64_t*>(cols),
       static_cast<const T*>(data), static_cast<const T*>(x),

@@ -50,6 +50,9 @@ segment_sum_launches = 0
 segment_sum_block_launches = 0
 coarse_pair_sum_launches = 0
 csr_matvec_launches = 0
+# segment_sum and segment_sum_block launches by plan shape and path:
+# (n_entries, n_segments, width, "thread" or "block") -> launches
+plan_launches: dict[tuple[int, int, int, str], int] = {}
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -80,6 +83,7 @@ def reset_launch_counts() -> None:
     segment_sum_block_launches = 0
     coarse_pair_sum_launches = 0
     csr_matvec_launches = 0
+    plan_launches.clear()
 
 
 def launch_counts() -> dict[str, int]:
@@ -294,6 +298,8 @@ def segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
         segment_sum_block_launches += 1
     else:
         segment_sum_launches += 1
+    key = (plan.n_entries, plan.n_segments, width, path)
+    plan_launches[key] = plan_launches.get(key, 0) + 1
     return out
 
 

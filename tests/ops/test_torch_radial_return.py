@@ -190,6 +190,148 @@ def test_wide_view_is_the_same_bytes():
         cuda_rr._to_wide(torch.zeros((8, 12), dtype=F64))
 
 
+# The Newton that j2_soa_step and j2_soa_history run on the card
+# (csrc/j2_radial_return.cu soa_newton, f64): 6 iterations in float32 from
+# dg = 0 (iteration 0 on the yield check's exp), then 2 in float64, every
+# divide but the last a product with the reciprocal (the kernel's fast
+# reciprocals, within an ulp or two of it); a point outside the f32
+# phase's range (F32_RANGE) takes j2_corrector's 8 f64 iterations. The
+# emulation rounds where the kernel's FMAs do not; the last two f64
+# iterations absorb that, which is what the test shows.
+F32_RANGE = 2.0 ** 100
+BENCH_SCALARS = (200e3 / 2.6, 200e3 * 0.3 / (1.3 * 0.4), 200.0, 200.0, 20.0)
+
+
+def _soa_newton_emulated(phi, alpha, ex0, mu, Y, S, D):
+    """(dg, exact): the f64 kernel's plastic multiplier of every point,
+    and where it took the exact path."""
+    f32 = torch.float32
+
+    def t32(x):
+        return torch.tensor(x, dtype=F64).to(f32)
+
+    mu_f, s_f, d_f = t32(mu), t32(S), t32(D)
+    mu3_f, ys_f, sd_f = 3.0 * mu_f, t32(Y) + s_f, s_f * d_f
+    c = phi - (Y + S)
+    cf, af = c.to(f32), alpha.to(f32)
+    dg_f = torch.zeros_like(cf)
+    for it in range(6):
+        ex = ex0.to(f32) if it == 0 else torch.exp(-d_f * (af + dg_f))
+        g = cf - mu3_f * dg_f + s_f * ex
+        dgd = -mu3_f - sd_f * ex
+        dg_f = torch.clamp(dg_f - g * (1.0 / dgd), min=0.0)
+    dg = dg_f.to(F64)
+    for it in (6, 7):
+        ex = torch.exp(-D * (alpha + dg))
+        g = c - 3.0 * mu * dg + S * ex
+        dgd = -3.0 * mu - S * D * ex
+        step = g / dgd if it == 7 else g * (1.0 / dgd)
+        dg = torch.clamp(dg - step, min=0.0)
+    in_range = bool(mu3_f >= 1.0 / F32_RANGE and mu3_f <= F32_RANGE
+                    and ys_f.abs() <= F32_RANGE and s_f.abs() <= F32_RANGE
+                    and sd_f.abs() <= F32_RANGE)
+    exact = ~(cf.abs() <= (F32_RANGE if in_range else -1.0))
+    dg_exact = torch.zeros_like(phi)
+    for _ in range(8):
+        ex = torch.exp(-D * (alpha + dg_exact))
+        g = phi - 3.0 * mu * dg_exact - Y - S * (1.0 - ex)
+        dgd = -3.0 * mu - S * D * ex
+        dg_exact = torch.clamp(dg_exact - g / dgd, min=0.0)
+    return torch.where(exact, dg_exact, dg), exact
+
+
+def _soa_step_emulated(xi, de, scalars):
+    """One step of the SoA kernels' update (soa_rows) with the emulated
+    Newton: (xi', plastic, exact path)."""
+    mu, lam, Y, S, D = scalars
+    x = [xi[r] for r in range(7)]
+    e = [de[r] for r in range(6)]
+    diag = lam * (e[0] + e[3] + e[5])
+    s = [x[0] + diag + 2.0 * mu * e[0], x[1] + 2.0 * mu * e[1],
+         x[2] + 2.0 * mu * e[2], x[3] + diag + 2.0 * mu * e[3],
+         x[4] + 2.0 * mu * e[4], x[5] + diag + 2.0 * mu * e[5]]
+    p = (s[0] + s[3] + s[5]) / 3.0
+    d0, d3, d5 = s[0] - p, s[3] - p, s[5] - p
+    phi = torch.sqrt(1.5 * (d0 * d0 + d3 * d3 + d5 * d5 + 2.0 * (
+        s[1] * s[1] + s[2] * s[2] + s[4] * s[4])))
+    alpha = x[6]
+    ex0 = torch.exp(-D * alpha)
+    plastic = phi - Y - S * (1.0 - ex0) > 0.0
+    dg, exact = _soa_newton_emulated(phi, alpha, ex0, mu, Y, S, D)
+    dg = torch.where(plastic, dg, 0.0)
+    safe_phi = torch.where(phi > 0.0, phi, 1.0)
+    scale = torch.where(plastic, 3.0 * mu * dg / safe_phi, 0.0)
+    out = torch.stack([s[0] - scale * d0, s[1] * (1.0 - scale),
+                       s[2] * (1.0 - scale), s[3] - scale * d3,
+                       s[4] * (1.0 - scale), s[5] - scale * d5,
+                       alpha + dg, torch.zeros_like(alpha)])
+    return out, plastic, exact & plastic
+
+
+def _unit_deviators(rng, n):
+    """Random deviatoric stresses of unit Mises norm, rows xx xy xz yy yz
+    zz."""
+    d = rng.normal(size=(6, n))
+    d[[0, 3, 5]] -= d[[0, 3, 5]].mean(axis=0)
+    phi = np.sqrt(1.5 * (d[0] ** 2 + d[3] ** 2 + d[5] ** 2
+                         + 2.0 * (d[1] ** 2 + d[2] ** 2 + d[4] ** 2)))
+    return d / phi
+
+
+def _newton_case(case, n=257, seed=11):
+    """(xi, de, scalars) of one case: points just above the yield
+    surface; a large D alpha (saturated hardening); the bench material
+    with mu, lam, Y and S x 1e37 (outside the f32 phase's range)."""
+    rng = np.random.default_rng(seed)
+    mu, lam, Y, S, D = BENCH_SCALARS
+    xi, de = np.zeros((8, n)), np.zeros((8, n))
+    if case == "just above yield":
+        # the trial stress (1 + delta) times the yield radius, delta from
+        # 1e-8 to 1e-2; de adds only a volumetric part
+        xi[6] = np.abs(rng.normal(0.0, 0.02, size=n))
+        radius = Y + S * (1.0 - np.exp(-D * xi[6]))
+        delta = 10.0 ** rng.uniform(-8.0, -2.0, size=n)
+        xi[:6] = _unit_deviators(rng, n) * radius * (1.0 + delta)
+        xi[[0, 3, 5]] += rng.normal(0.0, 50.0, size=n)
+        de[[0, 3, 5]] = rng.normal(0.0, 1e-4, size=n)
+        return xi, de, (mu, lam, Y, S, D)
+    xi[6] = (rng.uniform(1.0, 10.0, size=n) if case == "large D alpha"
+             else np.abs(rng.normal(0.0, 0.02, size=n)))
+    radius = Y + S * (1.0 - np.exp(-D * xi[6]))
+    xi[:6] = _unit_deviators(rng, n) * radius * rng.uniform(0.5, 1.0, n)
+    de[:6] = rng.normal(0.0, 1.5e-3, size=(6, n))
+    if case == "scaled 1e37":
+        xi[:6] *= 1e37
+        return xi, de, (mu * 1e37, lam * 1e37, Y * 1e37, S * 1e37, D)
+    return xi, de, (mu, lam, Y, S, D)
+
+
+@pytest.mark.parametrize("case", ["just above yield", "large D alpha",
+                                  "scaled 1e37"])
+def test_soa_kernel_newton_reaches_the_f64_fixed_point(case):
+    """The SoA kernels' Newton (6 f32 + 2 f64 iterations, emulated in
+    plain torch) gives cmad_tpu's K1 update (its ``_radial_rows``, 8 f64
+    iterations) within 1e-12 of each row's scale: 2 f64 iterations from an
+    f32 start reach the f64 fixed point on K1's inputs, and outside f32's
+    range the exact path does."""
+    from cmad_tpu.ops.pallas_radial_return import _radial_rows
+
+    xi, de, sc = _newton_case(case)
+    ref = _radial_rows(tuple(jnp.asarray(xi[r]) for r in range(7)),
+                       tuple(jnp.asarray(de[r]) for r in range(6)), *sc)
+    ref = np.stack([np.asarray(r) for r in ref] + [np.zeros(xi.shape[1])])
+    out, plastic, exact = _soa_step_emulated(torch.tensor(xi),
+                                             torch.tensor(de), sc)
+    assert torch.equal(plastic, torch.tensor(ref[6] > xi[6]))
+    if case == "scaled 1e37":
+        assert bool(plastic.any()) and torch.equal(exact, plastic)
+    else:
+        assert not bool(exact.any())
+        assert float(plastic.double().mean()) >= (
+            1.0 if case == "just above yield" else 0.5)
+    assert_rows_close(out, ref)
+
+
 @pytest.mark.parametrize("wrapper", ["step", "history"])
 def test_cuda_wrappers_raise_on_cpu_tensors(wrapper):
     """The kernel wrappers take CUDA tensors only: a CPU tensor raises

@@ -108,6 +108,7 @@ def test_plan_order_equals_index_add_bit_for_bit(problems, mesh, plan_name):
         assert torch.equal(plain, ref)
     assert ss.launch_counts() == {"segment_sum": 0, "segment_sum_block": 0,
                                   "coarse_pair_sum": 0, "csr_matvec": 0}
+    assert ss.plan_launches == {}
 
 
 @pytest.mark.parametrize("plan_name", PLANS)

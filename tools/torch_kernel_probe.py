@@ -16,9 +16,22 @@ library. For each library the probe prints
   kernels at 4,194,304 points, f64 and f32;
 - ``j2_soa_history`` in f64 on the two materials outside the range of its
   f32 Newton phase (``chip_smoke.range_scalars``), against the plain
-  loop of steps and the yield condition (not timed).
+  loop of steps and the yield condition (not timed);
+- ``j2_soa_step`` at the FE notch's shapes (47,628 and 153,600 points,
+  one launch per assembly; f64 and f32; from rest with the bench
+  increment, 99% of the points plastic, and x 1e-3, none): device ms
+  warm (the same inputs again, a CUDA graph of ``GRAPH_REPS`` launches)
+  and cold (``chip_smoke.cold_ms``: copies of the inputs larger than
+  twice the 50 MB L2, in turns), its launch floor (an empty kernel on
+  the library's grid, the same graph), the host ms of the wrapper
+  (``soa_step_scalars_cuda`` on the library) and of its C entry alone,
+  the byte and operations bounds and the error against the plain step;
+  its chain floor (one thread's dependent plastic updates, ``clock64``);
+  and the host's cost of the runtime queries a launch no longer makes.
 
-The libraries are timed in turns inside one process (A B B A ...), on the
+``--cases j2_soa_step`` times only ``j2_soa_step`` (the FE shapes, the
+chain floors and 4,194,304 points). The libraries are timed in turns
+inside one process (A B B A ...), on the
 same inputs, best of ``--rounds`` rounds of ``--reps`` launches, with
 CUDA events; each library's output is compared with the first's, and
 the cases where it is not bit-identical are listed at the end. Run
@@ -48,9 +61,12 @@ then the two-level ``coarse_matrix`` as a whole and its per-pair sum alone,
 as PyTorch's products plus each library's segment sum and as each
 library's fused ``coarse_pair_sum``, against ``coarse_matrix`` on the CPU.
 Device times come from a CUDA graph of 20 launches (``chip_smoke.graph_ms``),
-the libraries in turns. Each plan's row gives its byte bound and its chain
-floor: the longest segment times the latency of one dependent f64 add,
-which a one-thread chain kernel measures in the same call:
+the libraries in turns; the notch's plans, ``csr_matvec`` (beside
+PyTorch's CSR product) and the fused coarse-pair sum are also timed cold
+(``chip_smoke.cold_ms``), as the byte bound counts their bytes. Each
+plan's row gives its byte bound and its chain floor: the longest segment
+times the latency of one dependent f64 add, which a one-thread chain
+kernel measures in the same call:
 
     python3 tools/torch_kernel_probe.py --segsum \
         --src parent=build/parent/cmad_tpu_torch/csrc --src change=cmad_tpu_torch/csrc
@@ -71,6 +87,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -124,19 +141,22 @@ def sass_counts(insns) -> dict:
 # build
 
 
-# the block size of each kernel: the constant of the source it launches with
-_BLOCK_CONST = {"j2_soa_step": "kThreads",
-                "j2_total_step": "kTotalTile",
-                "j2_soa_history": "kHistThreads",
-                "j2_aos_step": "kAosTile"}
+# the block size of each kernel: the constant of the source it launches
+# with (j2_soa_step's is kThreads in builds before kStepThreads)
+_BLOCK_CONST = {"j2_soa_step": ("kStepThreads", "kThreads"),
+                "j2_total_step": ("kTotalTile",),
+                "j2_soa_history": ("kHistThreads",),
+                "j2_aos_step": ("kAosTile",)}
 
 
 def _block_sizes(csrc: Path) -> dict[str, int]:
     text = "".join(p.read_text() for p in sorted(Path(csrc).glob("*.cu")))
     sizes = {}
-    for kernel, const in _BLOCK_CONST.items():
-        m = re.search(rf"constexpr int {const} = (\d+);", text)
-        sizes[kernel] = int(m.group(1)) if m else 256
+    for kernel, consts in _BLOCK_CONST.items():
+        found = [int(m.group(1)) for c in consts
+                 for m in [re.search(rf"constexpr int {c} = (\d+);", text)]
+                 if m]
+        sizes[kernel] = found[0] if found else 256
     return sizes
 
 
@@ -194,7 +214,8 @@ def load(path: Path) -> ctypes.CDLL:
             "j2_total_step": [ptr] * 5 + [i64, ptr],
             "segment_sum": [ptr] * 5 + [i64, i64, ptr],
             "segment_sum_block": [ptr] * 6 + [i64, i64, ptr],
-            "coarse_pair_sum": [ptr] * 8 + [i64, i64, ptr]}
+            "coarse_pair_sum": [ptr] * 8 + [i64, i64, ptr],
+            "csr_matvec": [ptr] * 5 + [i64, ptr]}
     for base, args in sigs.items():
         for sfx in ("f32", "f64"):
             # a parent's library may lack the newer entries
@@ -275,12 +296,23 @@ def dadd_latency(out: Path) -> dict:
     return {"ns_per_add": best_ns, "cycles_per_add": best_cyc}
 
 
+def _in_turns(args, calls: dict, time_one) -> dict:
+    """ms per call of each ``calls[name]``, best of ``--rounds`` timings
+    ``time_one(calls[name])``, the names in turns (A B .. B A)."""
+    best = {nm: math.inf for nm in calls}
+    names = list(calls)
+    for r in range(args.rounds):
+        for nm in (names if r % 2 == 0 else names[::-1]):
+            best[nm] = min(best[nm], time_one(calls[nm]))
+    return best
+
+
 def segsum(args, libs: dict, report: dict, out: Path) -> None:
     """The --segsum mode: the module docstring says what it times."""
     import numpy as np
     import torch
 
-    from chip_smoke import FE_MESH, FE_RECORDS, graph_ms, notch_deck
+    from chip_smoke import FE_MESH, FE_RECORDS, cold_ms, graph_ms, notch_deck
     from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
     from cmad_tpu_torch.fem.nonlinear_solver import get_two_level_pattern
     from cmad_tpu_torch.ops import segment_sum as ss
@@ -303,16 +335,13 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
 
     def in_turns(calls: dict) -> dict:
-        """Device ms per call of each ``calls[name]()``, best of
-        ``--rounds`` CUDA-graph timings, the names in turns (A B .. B A)."""
-        best = {nm: math.inf for nm in calls}
-        names = list(calls)
-        for r in range(args.rounds):
-            for nm in (names if r % 2 == 0 else names[::-1]):
-                best[nm] = min(best[nm], graph_ms(calls[nm], sync))
-        return best
+        return _in_turns(args, calls, lambda fn: graph_ms(fn, sync))
 
-    def plan_row(label, plan, width, scale_too=False):
+    def cold_in_turns(calls: dict) -> dict:
+        return _in_turns(args, calls,
+                         lambda fa: cold_ms(fa[0], fa[1], sync))
+
+    def plan_row(label, plan, width, scale_too=False, cold=False):
         w = int(np.prod(width, dtype=np.int64))
         vals = torch.randn((plan.n_entries, *width), generator=gen,
                            device=dev, dtype=f64)
@@ -364,6 +393,37 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
                "bit_identical_to_cpu_index_add": equal,
                "byte_bound_ms": nbytes / 3.35e12 * 1e3,
                "chain_floor_ms": plan.max_length * chain["ns_per_add"] * 1e-6}
+        if cold:
+            # the same calls with every input read from device memory:
+            # copies of vals, the plan's index arrays and the scale
+            def launch(lib, path, vals_, perm_, offsets_, scale_, sched_):
+                o = torch.empty((plan.n_segments, *width), dtype=f64,
+                                device=dev)
+                ptr = [None if t is None else t.data_ptr()
+                       for t in (perm_, scale_)]
+                if path == "thread":
+                    check(lib.segment_sum_f64(
+                        vals_.data_ptr(), ptr[0], offsets_.data_ptr(),
+                        ptr[1], o.data_ptr(), plan.n_segments, w, stream()))
+                else:
+                    check(lib.segment_sum_block_f64(
+                        vals_.data_ptr(), ptr[0], offsets_.data_ptr(),
+                        ptr[1], sched_.data_ptr(), o.data_ptr(),
+                        plan.n_segments, w, stream()))
+                return o
+
+            inputs = (vals, plan.perm, plan.offsets, scale, plan.schedule)
+            cold_calls = {
+                nm: (lambda *a, lib=libs[nm.split("/")[0]],
+                     path=nm.split("/")[1]: launch(lib, path, *a), inputs)
+                for nm in calls if nm != "index_add_"}
+            cold_calls["index_add_"] = (
+                lambda i, v: v.new_zeros((plan.n_segments, *width))
+                .index_add_(0, i, v), (idx, src))
+            row["ms_cold"] = cold_in_turns(cold_calls)
+            row["byte_bound_share_of_cold"] = {
+                nm: row["byte_bound_ms"] / t
+                for nm, t in row["ms_cold"].items() if nm != "index_add_"}
         print(json.dumps(row), flush=True)
         report.setdefault("segsum", []).append(row)
         return row
@@ -381,18 +441,52 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
              "coarse pairs": (two["pair_plan"], (6, 6))}
     for label, (plan, width) in plans.items():
         plan_row(label, plan, width,
-                 scale_too=label == "two-level restriction")
+                 scale_too=label == "two-level restriction", cold=True)
         torch.cuda.empty_cache()
     for n_seg, length, w in SYNTH_PLANS:
         plan = ss.plan_from_offsets(np.arange(n_seg + 1) * length, dev)
         plan_row(f"uniform {n_seg} x {length} x {w}", plan,
                  (w,) if w > 1 else ())
 
+    # CG's product on K's pattern (29,040 rows) with random values: each
+    # library's csr_matvec beside PyTorch's CSR product (cuSPARSE), warm
+    # and cold
+    sp = fe.embedded_sparsity
+    data = torch.randn(sp.num_unique, generator=gen, device=dev, dtype=f64)
+    xv = torch.randn(sp.n, generator=gen, device=dev, dtype=f64)
+
+    def matvec(lib, ip, ci, d, x_):
+        y = torch.empty_like(x_)
+        check(lib.csr_matvec_f64(ip.data_ptr(), ci.data_ptr(), d.data_ptr(),
+                                 x_.data_ptr(), y.data_ptr(), sp.n,
+                                 stream()))
+        return y
+
+    def cusparse(ip, ci, d, x_):
+        return ss.csr_tensor(ip, ci, d, sp.n) @ x_
+
+    mv_args = (sp.indptr, sp.col_indices, data, xv)
+    mv = {nm: (lambda *a, lib=lib: matvec(lib, *a))
+          for nm, lib in libs.items()}
+    mv["cuSPARSE"] = cusparse
+    mv_ref = cusparse(*mv_args)
+    mv_err = {nm: float((fn(*mv_args) - mv_ref).abs().max())
+              for nm, fn in mv.items()}
+    mv_bytes = 8 * (2 * sp.num_unique + 3 * sp.n + 1)
+    row = {"case": "csr_matvec", "rows": sp.n, "nonzeros": sp.num_unique,
+           "ms": in_turns({nm: (lambda fn=fn: fn(*mv_args))
+                           for nm, fn in mv.items()}),
+           "ms_cold": cold_in_turns({nm: (fn, mv_args)
+                                     for nm, fn in mv.items()}),
+           "max_abs_diff_to_cusparse": mv_err,
+           "byte_bound_ms": mv_bytes / 3.35e12 * 1e3}
+    print(json.dumps(row), flush=True)
+    report.setdefault("segsum", []).append(row)
+
     # coarse_matrix as a whole, and its per-pair sum alone, on K's pattern
     # with random values: PyTorch's products + each library's segment sum
     # (the composition every library before the fused kernel ran), and
     # each library's fused coarse_pair_sum
-    sp = fe.embedded_sparsity
     nnz = sp.num_unique
     unique = torch.randn(nnz, generator=gen, device=dev, dtype=f64)
     order, P, plan = two["order"], two["P_vals"], two["pair_plan"]
@@ -460,9 +554,24 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
     sync()
     pair_bytes = 8 * (4 * nnz + P.numel() + 2 * plan.n_segments + 1
                       + w * w * plan.n_segments)
+    # the fused sum with its inputs read from device memory
+    def fused_cold(lib, *a):
+        S_c = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
+        check(lib.coarse_pair_sum_f64(*(t.data_ptr() for t in a),
+                                      S_c.data_ptr(), plan.n_segments, w,
+                                      stream()))
+        return S_c
+
+    fused_inputs = (unique, order, sp.rows, sp.col_indices, P, plan.offsets,
+                    plan.schedule)
+    cold_alone = {f"{nm}/fused sum": (lambda *a, lib=lib: fused_cold(lib, *a),
+                                      fused_inputs)
+                  for nm, lib in libs.items()
+                  if getattr(lib, "coarse_pair_sum_f64", None) is not None}
     row = {"case": "coarse_matrix", "entries": nnz,
            "pairs": plan.n_segments, "longest": plan.max_length,
            "whole_ms": in_turns(whole), "sum_alone_ms": in_turns(alone),
+           "fused_sum_cold_ms": cold_in_turns(cold_alone),
            "bit_identical_to_cpu_coarse_matrix": equal,
            "fused_byte_bound_ms": pair_bytes / 3.35e12 * 1e3,
            "products_bytes": block.numel() * 8,
@@ -477,6 +586,343 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
           f"{'yes' if not bad else 'no: ' + str(bad)}", flush=True)
     if bad:
         raise RuntimeError(f"segsum: outputs differ from the CPU: {bad}")
+
+
+# --------------------------------------------------------------------------
+# j2_soa_step at the FE notch's shapes
+
+# K1's launch at the FE path's shapes: one launch per assembly of the
+# 47,628- and 153,600-tet notch (chip_smoke's FE_MESH, FE_LARGE_MESH)
+N_FE_SHAPES = (47_628, 153_600)
+# plastic: from rest with bench.py's increment, as at 4,194,304 (99.2% of
+# the points yield; the notch's last step: 47,357 of 47,628); elastic: the
+# increment x 1e-3, no point yields
+FE_REGIMES = {"plastic": 1.0, "elastic": 1e-3}
+CHAIN_STEPS = 1024
+
+# one thread's chain of dependent K1 updates of one point, every one
+# plastic (the same increment each step keeps loading the point): the
+# latency of one plastic update, with the library's own update (soa_rows,
+# or radial_rows in builds before it) compiled from its source
+K1_CHAIN_SRC = r"""
+#include "@SOURCE@"
+
+template <typename T>
+__global__ void k1_chain(const T* __restrict__ xi, const T* __restrict__ de,
+                         const T* __restrict__ scalars, T* __restrict__ out,
+                         long long steps, long long* __restrict__ stats) {
+  @SETUP@
+  T x[7], e[6];
+  for (int r = 0; r < 7; ++r) x[r] = xi[r];
+  for (int r = 0; r < 6; ++r) e[r] = de[r];
+  long long plastic = 0;
+  const long long t0 = clock64();
+  for (long long k = 0; k < steps; ++k) {
+    const T a = x[6];
+    @UPDATE@
+    plastic += x[6] > a;
+  }
+  const long long t1 = clock64();
+  for (int r = 0; r < 7; ++r) out[r] = x[r];
+  stats[0] = t1 - t0;
+  stats[1] = plastic;
+}
+
+extern "C" int k1_chain_run(const void* xi, const void* de,
+                            const void* scalars, void* out, long long steps,
+                            void* stats, int f64, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto st = static_cast<long long*>(stats);
+  if (f64) {
+    k1_chain<double><<<1, 1, 0, s>>>(
+        static_cast<const double*>(xi), static_cast<const double*>(de),
+        static_cast<const double*>(scalars), static_cast<double*>(out),
+        steps, st);
+  } else {
+    k1_chain<float><<<1, 1, 0, s>>>(
+        static_cast<const float*>(xi), static_cast<const float*>(de),
+        static_cast<const float*>(scalars), static_cast<float*>(out), steps,
+        st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# the host's cost of the runtime queries a launch made before
+# launch_grid.cuh kept them (the SM count and the occupancy), against
+# cudaGetDevice alone, which it still makes
+QUERY_SRC = r"""
+#include <cuda_runtime.h>
+#include <chrono>
+__global__ void empty_kernel() {}
+extern "C" double query_ns(int reps, int all) {
+  int device = 0, sms = 0, per_sm = 0;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    cudaGetDevice(&device);
+    if (all) {
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, empty_kernel,
+                                                    128, 0);
+    }
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / reps;
+}
+"""
+
+
+def _build_probe_libs(srcs: dict, out: Path) -> dict:
+    """Per library: its K1 chain kernel (from its own source); and the
+    empty kernel of K1's launch floor (chip_smoke.FLOOR_SRC) and the
+    runtime queries' timer. Compiled in parallel, loaded with ctypes."""
+    from chip_smoke import FLOOR_SRC
+
+    procs = {}
+    lib_dir = out / "lib"
+    lib_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"floor": FLOOR_SRC, "queries": QUERY_SRC}
+    for name, d in srcs.items():
+        text = (Path(d) / "j2_radial_return.cu").read_text()
+        new = "soa_rows" in text
+        jobs[f"chain_{name}"] = (
+            K1_CHAIN_SRC
+            .replace("@SOURCE@", str((Path(d) / "j2_radial_return.cu")
+                                     .resolve()))
+            .replace("@SETUP@", "const SoaMaterial<T> sm = soa_material("
+                                "scalars);" if new else
+                     "const Material<T> m = load_material(scalars);")
+            .replace("@UPDATE@", "soa_rows<T, kNewtonIters>(x, e, sm);"
+                     if new else "radial_rows(x, e, m);"))
+    for name, text in jobs.items():
+        src = out / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(lib_dir / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the probe's {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib_dir / f"{name}.so"))
+    libs["floor"].empty_run.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    libs["floor"].empty_run.restype = ctypes.c_int
+    libs["queries"].query_ns.argtypes = [ctypes.c_int, ctypes.c_int]
+    libs["queries"].query_ns.restype = ctypes.c_double
+    for name in srcs:
+        fn = libs[f"chain_{name}"].k1_chain_run
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return libs
+
+
+def k1_fe_shape(args, libs: dict, srcs: dict, report: dict,
+                out: Path) -> None:
+    """j2_soa_step at the FE shapes, each library in turns: device ms warm
+    (the same inputs, a CUDA graph of GRAPH_REPS launches) and cold
+    (chip_smoke.cold_ms), the launch floor (an empty kernel on the
+    library's grid, the same graph), the chain floor (one thread's plastic
+    update, clock64 and CUDA events), the wrapper's time from the host
+    (``soa_step_scalars_cuda`` on the library), the byte and operations
+    bounds, and the output against the plain step and the first
+    library's."""
+    import torch
+
+    from chip_smoke import STEP_BOUND, cold_ms, graph_ms
+    from cmad_tpu_torch.ops import cuda_radial_return as cuda_rr
+
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev).manual_seed(1)
+    probe = _build_probe_libs(srcs, out)
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    def host_ms(lib_fn, calls=1000) -> float:
+        """Host ms per call of ``fn()`` with ``load_library`` giving
+        ``lib`` (``lib_fn = (lib, fn)``): ``calls`` calls between two reads
+        of the host's clock; the device, faster than the host at these
+        shapes, keeps up."""
+        lib, fn = lib_fn
+        saved = _build.load_library
+        _build.load_library = lambda: lib
+        try:
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            ms = (time.perf_counter() - t0) / calls * 1e3
+            sync()
+        finally:
+            _build.load_library = saved
+        return ms
+
+    def floor_call(nm, n, dt):
+        """The empty kernel on the grid the library's K1 takes for n
+        points: the full grid at its occupancy (ptxas), and no more
+        blocks than the points need; since launch_grid.cuh balanced, so
+        that every block takes as many rounds."""
+        key = f"j2_soa_step<{'double' if dt == torch.float64 else 'float'}>"
+        per_sm = report["libs"][nm]["resources"][key]["blocks_per_sm"]
+        threads = _block_sizes(Path(srcs[nm]))["j2_soa_step"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        full, needed = sms * per_sm, -(-n // threads)
+        if (Path(srcs[nm]) / "launch_grid.cuh").exists():
+            rounds = -(-needed // full)
+            grid = -(-needed // rounds)
+        else:
+            grid = min(needed, full)
+        return lambda: check(probe["floor"].empty_run(grid, threads,
+                                                      stream()))
+
+    # what a launch no longer asks of the runtime
+    torch.cuda.synchronize()
+    queries = {"three_queries_ns": min(probe["queries"].query_ns(100_000, 1)
+                                       for _ in range(4)),
+               "cudaGetDevice_ns": min(probe["queries"].query_ns(100_000, 0)
+                                       for _ in range(4))}
+    print(json.dumps({"runtime_queries": queries}), flush=True)
+    report["runtime_queries"] = queries
+
+    # the chain floor: one plastic update's latency, per library and type
+    for dt, sfx in ((torch.float64, "f64"), (torch.float32, "f32")):
+        if not re.search(args.cases, f"j2_soa_step {sfx} chain"):
+            continue
+        sc = torch.tensor(SCALARS, device=dev, dtype=dt)
+        x0 = torch.zeros(8, device=dev, dtype=dt)
+        de = torch.zeros(8, device=dev, dtype=dt)
+        de[:6] = 1.5e-3 * torch.randn(6, generator=gen, device=dev,
+                                      dtype=dt)
+        row = {"case": f"j2_soa_step {sfx} chain {CHAIN_STEPS} steps",
+               "cycles_per_update": {}, "ns_per_update": {},
+               "plastic_updates": {}}
+        for nm in libs:
+            fn = probe[f"chain_{nm}"].k1_chain_run
+            o = torch.zeros(8, device=dev, dtype=dt)
+            stats = torch.zeros(2, device=dev, dtype=torch.int64)
+            best_ns, best_cyc = math.inf, math.inf
+            for _ in range(4):      # the first is a warm-up
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                check(fn(x0.data_ptr(), de.data_ptr(), sc.data_ptr(),
+                         o.data_ptr(), CHAIN_STEPS, stats.data_ptr(),
+                         int(dt == torch.float64), stream()))
+                end.record()
+                end.synchronize()
+                cyc, plastic = stats.tolist()
+                best_ns = min(best_ns, start.elapsed_time(end) * 1e6
+                              / CHAIN_STEPS)
+                best_cyc = min(best_cyc, cyc / CHAIN_STEPS)
+            row["cycles_per_update"][nm] = best_cyc
+            row["ns_per_update"][nm] = best_ns
+            row["plastic_updates"][nm] = plastic
+        print(json.dumps(row), flush=True)
+        report.setdefault("k1_chain", []).append(row)
+
+    for n in N_FE_SHAPES:
+        for dt, sfx in ((torch.float64, "f64"), (torch.float32, "f32")):
+            sc = torch.tensor(SCALARS, device=dev, dtype=dt)
+            eps = 1.5e-3 * torch.randn((n, 3, 3), generator=gen, device=dev,
+                                       dtype=dt)
+            eps = 0.5 * (eps + eps.transpose(1, 2))
+            de1 = torch.zeros((8, n), device=dev, dtype=dt)
+            for r, (i, j) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1),
+                                        (1, 2), (2, 2))):
+                de1[r] = eps[:, i, j]
+            xi0 = torch.zeros((8, n), device=dev, dtype=dt)
+            for regime, factor in FE_REGIMES.items():
+                case = f"j2_soa_step {sfx} fe {n} {regime}"
+                if not re.search(args.cases, case):
+                    continue
+                de = factor * de1
+                ref = soa_step_scalars(xi0, de, sc)
+                warm, cold, floors, outs = {}, {}, {}, {}
+                for nm, lib in libs.items():
+                    fn = getattr(lib, f"j2_soa_step_{sfx}")
+
+                    def launch(x, d, s, fn=fn):
+                        o = torch.empty_like(x)
+                        check(fn(x.data_ptr(), d.data_ptr(), s.data_ptr(),
+                                 o.data_ptr(), n, stream()))
+                        return o
+
+                    outs[nm] = launch(xi0, de, sc)
+                    warm[nm] = (lambda launch=launch: launch(xi0, de, sc))
+                    cold[nm] = (launch, (xi0, de, sc))
+                    floors[nm] = floor_call(nm, n, dt)
+                sync()
+                ms_warm = _in_turns(args, warm, lambda f: graph_ms(f, sync))
+                ms_cold = _in_turns(args, cold,
+                                    lambda fa: cold_ms(fa[0], fa[1], sync))
+                ms_floor = _in_turns(args, floors,
+                                     lambda f: graph_ms(f, sync))
+                # the wrapper as the FE path calls it, on each library,
+                # and its C entry alone, the libraries in turns
+                o_host = torch.empty_like(xi0)
+                wrapper, entries = {}, {}
+                for nm, lib in libs.items():
+                    fn = getattr(lib, f"j2_soa_step_{sfx}")
+                    ptrs = (xi0.data_ptr(), de.data_ptr(), sc.data_ptr(),
+                            o_host.data_ptr(), n)
+                    wrapper[nm] = (lib, lambda: cuda_rr.soa_step_scalars_cuda(
+                        xi0, de, sc))
+                    entries[nm] = (lib, lambda fn=fn, ptrs=ptrs: check(
+                        fn(*ptrs, stream())))
+                host = _in_turns(args, wrapper, host_ms)
+                entry = _in_turns(args, entries, host_ms)
+                first = next(iter(outs))
+                plastic = int((outs[first][6] > 0).sum())
+                nbytes = 21 * n * de.element_size()
+                bounds = {}
+                for nm in libs:
+                    key = f"j2_soa_step<{'double' if dt == torch.float64 else 'float'}>"
+                    c = report["libs"][nm]["sass"][key]
+                    t_ops = max((c["elastic"][k] * n + c["plastic"][k] * plastic)
+                                / peak for k, peak in (("fp64", 34e12),
+                                                       ("fp32", 67e12))) * 1e3
+                    t_bytes = nbytes / 3.35e12 * 1e3
+                    bounds[nm] = {"bytes_ms": t_bytes, "ops_ms": t_ops,
+                                  "share_of_cold": max(t_bytes, t_ops)
+                                  / ms_cold[nm]}
+                errs = {}
+                for nm, o in outs.items():
+                    diff = (o[:7] - ref[:7]).abs().amax(dim=1)
+                    scale = ref[:7].abs().amax(dim=1).clamp(min=1.0)
+                    errs[nm] = float((diff / scale).max())
+                bound = STEP_BOUND[str(dt).split(".")[-1]]
+                row = {"case": case, "n": n, "plastic_updates": plastic,
+                       "ms_cold": ms_cold, "ms_warm": ms_warm,
+                       "launch_floor_ms": ms_floor,
+                       "cold_above_floor_ms": {
+                           nm: ms_cold[nm] - ms_floor[nm] for nm in libs},
+                       "wrapper_host_ms": host, "entry_host_ms": entry,
+                       "bounds": bounds,
+                       "max_row_scaled_err_to_plain": errs,
+                       "step_bound": bound,
+                       "max_abs_diff_to_first": {
+                           nm: float((o - outs[first]).abs().max())
+                           for nm, o in outs.items()},
+                       "bit_identical_to_first": {
+                           nm: bool(torch.equal(o, outs[first]))
+                           for nm, o in outs.items()}}
+                print(json.dumps(row), flush=True)
+                report.setdefault("k1_fe", []).append(row)
+                if not all(e <= bound for e in errs.values()):
+                    raise RuntimeError(f"{case}: outside the step bound: "
+                                       f"{errs}")
+                del warm, cold, outs, ref, de
+                torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -601,6 +1047,9 @@ def main() -> int:
         (out / "probe.json").write_text(json.dumps(report, indent=1))
         print(card, flush=True)
         return 1 if failed else 0
+
+    if re.search(args.cases, "j2_soa_step"):
+        k1_fe_shape(args, libs, srcs, report, out)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
