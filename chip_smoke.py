@@ -8,10 +8,11 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels of ``cmad_tpu_torch/csrc`` (one nvcc per
 source, started together, into ``build/cmad_tpu_torch/``): the four J2
 return maps, their f32 history with 1-12 Newton iterations (the roofline
-experiment's kernel R), and the reproducible sums ``segment_sum`` (one
-thread per output), ``segment_sum_block`` (one block per segment),
-``coarse_pair_sum`` (the two-level coarse pairs' products and sums) and
-``csr_matvec``. It checks each against its plain PyTorch version
+experiment's kernel R), and the reproducible sums ``segment_sum_tile``
+(a block per tile of short segments, staged in shared memory; with the CSR
+product ``csr_matvec`` as its entry for CG), ``segment_sum_block`` (one
+block per segment) and ``coarse_pair_sum`` (the two-level coarse pairs'
+products and sums). It checks each against its plain PyTorch version
 on the card, drives the port's public entry points at the headline sizes
 and checks the answers against the plain path and against the yield
 condition, and prints timings of the kernel and plain paths measured with
@@ -47,11 +48,13 @@ the built library's SASS counts them). The paths driven:
 - determinism: the 47,628-tet drive a second time in the same process,
   bit for bit the same U history, Newton path and CG counts; then the
   segment sum on each of the FE path's six plans, on the kernel the plan
-  picks, against ``index_add_`` on the CPU bit for bit (the plans of long
-  segments through the thread path too), ``csr_matvec`` against PyTorch's
-  CSR product, and ``coarse_pair_sum`` on the step's first K against
-  ``coarse_matrix`` on the CPU bit for bit, each timed on the device,
-  warm and cold, beside the PyTorch calls it replaces;
+  picks and on every other path that takes its width, against
+  ``index_add_`` on the CPU bit for bit; ``csr_matvec`` on the step's first
+  Newton system against ``csr_matvec_plain`` on the CPU bit for bit and
+  against PyTorch's CSR product to a tolerance; and ``coarse_pair_sum`` on
+  the step's first K against ``coarse_matrix`` on the CPU bit for bit, each
+  timed on the device, warm and cold, beside the PyTorch calls it replaces
+  (with the kernels' int32 indices where PyTorch takes them);
 - the FE J2 stepped gradient of the notch calibration
   (``benchmarks/notch_hosford/calibrate_scale.py``: a truth at Y = 2.0
   from the port's primal, then J and dJ/dc at Y = 2.6 under the log
@@ -148,6 +151,37 @@ MP_GRAD_RTOL = 1e-9
 # DADD, DMUL, FADD and FMUL 1)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"fp64": 34e12, "fp32": 67e12}
+
+
+def segsum_bytes(summed: int, width: int, n_segments: int, perm: bool,
+                 scale: bool, index_bytes: int = 4) -> int:
+    """The bytes a segment sum must move: each summed entry's values (8 B
+    a column), perm entry and scale read once, the offsets once, and each
+    output written once. ``index_bytes`` 4, the least a per-entry index
+    needs at these sizes (the tile path reads int32), is the bound; 8 the
+    count of int64 indices, the bound before."""
+    return (summed * (8 * width + index_bytes * perm + 8 * scale)
+            + n_segments * 8 * width + index_bytes * (n_segments + 1))
+
+
+def csr_tensor(indptr, cols, data, n: int):
+    """The ``(n, n)`` PyTorch CSR matrix ``(indptr, cols, data)``: the
+    library call (cuSPARSE on the card) timed beside ``csr_matvec``."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is beta"
+        return torch.sparse_csr_tensor(indptr, cols, data, (n, n),
+                                       check_invariants=False)
+
+
+def csr_bytes(nnz: int, n: int, index_bytes: int = 4) -> int:
+    """The bytes of y = A x for an (n, n) CSR matrix: each value and
+    column index read once, x and the row pointer once, y written once
+    (``index_bytes`` as :func:`segsum_bytes`)."""
+    return nnz * (8 + index_bytes) + 16 * n + index_bytes * (n + 1)
 
 # the gradient phase's active parameters: E, Y, S, D
 GRAD_FLAGS = {
@@ -266,6 +300,32 @@ FE_GRAD_J_RTOL, FE_GRAD_G_RTOL = 1e-5, 1e-3
 SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
 # R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
 ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
+
+
+def grad_deck(mesh: str, solver: dict, data_file, tol=None) -> dict:
+    """The notch deck at Y = GRAD_Y, Y active under the log transform
+    about GRAD_Y_TRUTH, with fe_displacement_match against ``data_file``
+    (:func:`save_displacements`)."""
+    deck = notch_deck(mesh, solver)
+    deck["residuals"]["local residual"]["materials"]["block_1"][
+        "plastic"]["flow stress"]["initial yield"] = {
+            "Y": {"value": GRAD_Y, "active": True,
+                  "transform": {"log": GRAD_Y_TRUTH}}}
+    deck["qoi"] = {"name": "fe_displacement_match",
+                   "data_file": str(data_file), "weight": GRAD_WEIGHT}
+    if tol is not None:
+        deck["residuals"]["global residual"].update(
+            {"nonlinear absolute tol": tol, "nonlinear relative tol": tol})
+    return deck
+
+
+def save_displacements(state, path: Path) -> Path:
+    """A drive's U history, (steps + 1, nodes, 3), saved to ``path``: the
+    truth of :func:`grad_deck`."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.stack(state.U_history).reshape(
+        len(state.U_history), -1, 3))
+    return path
 
 
 def notch_deck(mesh: str, solver: dict) -> dict:
@@ -505,21 +565,24 @@ def _fresh(a):
     if dataclasses.is_dataclass(a) and not isinstance(a, type):
         return dataclasses.replace(a, **{
             f.name: _fresh(getattr(a, f.name))
-            for f in dataclasses.fields(a)
-            if isinstance(getattr(a, f.name), torch.Tensor)})
+            for f in dataclasses.fields(a)})
     if isinstance(a, tuple):
         return tuple(_fresh(x) for x in a)
     return a
 
 
-def cold_ms(fn, args: tuple, sync) -> float:
+def cold_ms(fn, args: tuple, sync, nbytes: int | None = None) -> float:
     """Device ms per call of ``fn(*args)`` with its inputs cold in the L2:
-    copies of ``args`` that add up to more than COLD_L2_FACTOR times the
-    L2 (at least two), called in turn in one CUDA graph of at least
-    GRAPH_REPS calls (:func:`_replay_ms`), so that each call reads its
-    inputs from device memory and writes outputs of its own, as the byte
-    bound counts them."""
-    nbytes = sum(t.numel() * t.element_size() for t in _tensors(args))
+    copies of ``args`` whose ``nbytes`` (the bytes a call reads; by
+    default every tensor in ``args``) add up to more than COLD_L2_FACTOR
+    times the L2 (at least two copies), called in turn in one CUDA graph
+    of at least GRAPH_REPS calls (:func:`_replay_ms`), so that each call
+    reads its inputs from device memory and writes outputs of its own, as
+    the byte bound counts them. Pass ``nbytes`` where ``args`` hold
+    tensors the call does not read (a plan's other index arrays): counted,
+    they would leave too few copies to push the read ones out of the L2."""
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size() for t in _tensors(args))
     copies = max(2, COLD_L2_FACTOR * L2_BYTES // max(nbytes, 1) + 1)
     sets = [args] + [_fresh(args) for _ in range(copies - 1)]
     calls = [lambda a=a: fn(*a) for a in sets]
@@ -1314,7 +1377,8 @@ def main() -> int:
                    f"(each Newton start, each probe, each step's residual "
                    f"pair) {implied}; all kernels {k1}")
         if k1["j2_soa_step"] != implied or implied < len(stats) \
-                or not all(k1[k] for k in ("segment_sum", "segment_sum_block",
+                or not all(k1[k] for k in ("segment_sum_tile",
+                                           "segment_sum_block",
                                            "coarse_pair_sum", "csr_matvec")):
             raise RuntimeError(f"{phase}: launches {k1}, assemblies "
                                f"{implied}")
@@ -1569,11 +1633,12 @@ def main() -> int:
     del state2
     # segment_sum on every plan of the FE path at this size against its
     # plain version, index_add_ on the CPU, bit for bit, on the kernel the
-    # plan picks (segment_path); a plan of long segments also through the
-    # thread path, bit for bit too; each timed on the device (CUDA graph)
-    # beside index_add_ on the card. The kernels line reports the
-    # assembly's dedup plan (segment_sum, 47,628 x 144 COO entries) and the
-    # two-level restriction (segment_sum_block, every CG iteration)
+    # plan picks (segment_path) and on every other path that takes its
+    # width; on its own path timed on the device (CUDA graph) warm and cold
+    # beside index_add_ on the card with the tile path's int32 index. The
+    # kernels line reports the assembly's dedup plan (segment_sum_tile,
+    # 47,628 x 144 COO entries) and the two-level restriction
+    # (segment_sum_block, every CG iteration)
     ka = fe.kernel_arrays
     two = get_two_level_pattern(fe).on(dev, torch.float64)
     plans = {"residual scatter": (ka.eq_plan_by_block["block_1"][0], ()),
@@ -1604,47 +1669,44 @@ def main() -> int:
         cpu_ref = torch.zeros(seg_out.shape, dtype=torch.float64).index_add_(
             0, idx.cpu(), src.cpu())
         seg_equal = bool(torch.equal(seg_out.cpu(), cpu_ref))
+        others = [p_ for p_ in ("tile", "block") if p_ != path
+                  and (p_ != "block" or w <= segsum.BLOCK_MAX_WIDTH)]
+        for other in others:
+            if not torch.equal(segsum.segment_sum_cuda(
+                    vals, plan, scale, path=other).cpu(), cpu_ref):
+                raise RuntimeError(f"determinism: segment_sum's {other} "
+                                   f"path ({label}) differs from the CPU")
+        # the entries the plan sums (the CSR dedup leaves the prescribed
+        # rows and columns out), each value, index and output once
+        summed = int(plan.sorted_target.shape[0])
+        shape = (summed, w, plan.n_segments, plan.perm is not None,
+                 scale is not None)
         seg_warm = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
                             sync)
-        seg_ms = cold_ms(segsum.segment_sum, (vals, plan, scale), sync)
+        seg_ms = cold_ms(segsum.segment_sum, (vals, plan, scale), sync,
+                         segsum_bytes(*shape))
+        idx32 = idx.to(torch.int32)
 
         def index_add(idx_, src_, shape=seg_out.shape):
             return src_.new_zeros(shape).index_add_(0, idx_, src_)
 
-        lib_warm = graph_ms(lambda: index_add(idx, src), sync)
-        lib_ms = cold_ms(index_add, (idx, src), sync)
-        # the entries the plan sums (the CSR dedup leaves the prescribed
-        # rows and columns out), each value, index and output once
-        summed = int(plan.sorted_target.shape[0])
-        seg_bytes = 8 * (summed * (w + (plan.perm is not None)
-                                   + (scale is not None))
-                         + plan.n_segments * (w + 1) + 1)
-        seg_bound = max(seg_bytes / HBM_BYTES_PER_S,
-                        summed * w * (1 + (scale is not None))
-                        / PEAK_OPS["fp64"]) * 1e3
-        thread_note = ""
-        if path == "block":
-            thr_out = segsum.segment_sum_cuda(vals, plan, scale,
-                                              path="thread")
-            thr_equal = bool(torch.equal(thr_out.cpu(), cpu_ref))
-            thr_ms = graph_ms(lambda: segsum.segment_sum_cuda(
-                vals, plan, scale, path="thread"), sync)
-            thread_note = (f"; through the thread path too: bit-identical "
-                           f"{thr_equal}, device time {thr_ms:.4f} ms")
-            if not thr_equal:
-                raise RuntimeError(f"determinism: segment_sum's thread path "
-                                   f"({label}) differs from the CPU")
-            del thr_out
+        lib_warm = graph_ms(lambda: index_add(idx32, src), sync)
+        lib_ms = cold_ms(index_add, (idx32, src), sync)
+        seg_bound, seg_bound64 = (max(
+            segsum_bytes(*shape, index_bytes=ib) / HBM_BYTES_PER_S,
+            summed * w * (1 + (scale is not None)) / PEAK_OPS["fp64"]) * 1e3
+            for ib in (4, 8))
         say("determinism", f"segment_sum, {label} ({plan.n_entries} entries "
                            f"x {w} into {plan.n_segments}, longest "
                            f"{plan.max_length}): {path} path; card vs "
                            f"index_add_ on the CPU bit-identical: "
-                           f"{seg_equal}; device time {seg_ms:.4f} ms "
-                           f"cold ({seg_warm:.4f} warm), index_add_ on the "
-                           f"card {lib_ms:.4f} ms cold ({lib_warm:.4f} "
-                           f"warm); bound {seg_bound:.4f} ms (bytes) = "
-                           f"{seg_bound / seg_ms:.1%} of the cold time"
-                           f"{thread_note}")
+                           f"{seg_equal}, through the {' and '.join(others)} "
+                           f"path too; device time {seg_ms:.4f} ms "
+                           f"cold ({seg_warm:.4f} warm), index_add_ (int32) "
+                           f"on the card {lib_ms:.4f} ms cold ({lib_warm:.4f} "
+                           f"warm); bound {seg_bound:.4f} ms (bytes, int32 "
+                           f"indices; {seg_bound64:.4f} with int64) = "
+                           f"{seg_bound / seg_ms:.1%} of the cold time")
         if not seg_equal:
             raise RuntimeError(f"determinism: segment_sum ({label}) differs "
                                f"from the CPU")
@@ -1657,7 +1719,10 @@ def main() -> int:
                 seg_bound)
         del vals, scale, seg_out, cpu_ref, src
     # the CG's product on the step's first Newton system: csr_matvec
-    # against PyTorch's CSR product (cuSPARSE), its plain version
+    # against its plain version on the CPU (csr_matvec_plain: each row in
+    # ascending column order) bit for bit, and against PyTorch's CSR product
+    # (cuSPARSE) to a tolerance; the plain version and cuSPARSE with the
+    # kernel's int32 indices timed beside it
     sp = fe.embedded_sparsity
     K0 = _embedded_bc_enforce(assemble_global(
         fe, ka, params_by_block_from_models(fe),
@@ -1669,33 +1734,47 @@ def main() -> int:
         ka.prescribed_indices)[0]
     unique = segsum.segment_sum(K0, sp.dedup_plan)
     x = torch.randn(sp.n, generator=gen, device=dev, dtype=torch.float64)
-    A = segsum.csr_tensor(sp.indptr, sp.col_indices, unique, sp.n)
-    y = segsum.csr_matvec_cuda(sp.indptr, sp.col_indices, unique, x)
+    crow32, col32 = sp.csr.rows.offsets, sp.csr.cols
+    A = csr_tensor(crow32, col32, unique, sp.n)
+    y = segsum.csr_matvec_cuda(sp.csr, unique, x)
+    y_plain = segsum.csr_matvec_plain(
+        segsum.csr_plan(sp.indptr_np, sp.col_indices_np, "cpu"),
+        unique.cpu(), x.cpu())
+    csr_equal = bool(torch.equal(y.cpu(), y_plain))
     y_lib = A @ x
-    csr_err = float((y - y_lib).abs().max())
-    csr_rel = csr_err / float(y_lib.abs().max())
-    csr_warm = graph_ms(lambda: segsum.csr_matvec_cuda(
-        sp.indptr, sp.col_indices, unique, x), sync)
-    csr_ms = cold_ms(segsum.csr_matvec_cuda,
-                     (sp.indptr, sp.col_indices, unique, x), sync)
-    csr_lib_warm = graph_ms(lambda: A @ x, sync)
-    csr_lib = cold_ms(lambda ip, ci, u, xx: segsum.csr_tensor(
-        ip, ci, u, sp.n) @ xx, (sp.indptr, sp.col_indices, unique, x), sync)
+    csr_err = float((y.cpu() - y_plain).abs().max())
+    csr_rel = float((y - y_lib).abs().max()) / float(y_lib.abs().max())
+    csr_warm = graph_ms(lambda: segsum.csr_matvec_cuda(sp.csr, unique, x),
+                        sync)
     nnz = sp.num_unique
-    csr_bytes = 8 * (2 * nnz + 3 * sp.n + 1)
-    csr_bound = max(csr_bytes / HBM_BYTES_PER_S,
-                    2 * nnz / PEAK_OPS["fp64"]) * 1e3
-    say("determinism", f"csr_matvec ({sp.n} rows, {nnz} nonzeros) vs "
-                       f"PyTorch's CSR product: max rel err {csr_rel:.3e} "
-                       f"(bound {STEP_BOUND['float64']:g}, summation "
-                       f"order); device {csr_ms:.4f} ms cold "
-                       f"({csr_warm:.4f} warm), cuSPARSE {csr_lib:.4f} ms "
-                       f"cold ({csr_lib_warm:.4f} warm); bound "
-                       f"{csr_bound:.4f} ms (bytes) = "
-                       f"{csr_bound / csr_ms:.1%} of the cold time")
-    if not csr_rel <= STEP_BOUND["float64"]:
+    read = csr_bytes(nnz, sp.n)
+    csr_ms = cold_ms(segsum.csr_matvec_cuda, (sp.csr, unique, x), sync,
+                     read)
+    plain_warm = graph_ms(lambda: segsum.csr_matvec_plain(sp.csr, unique, x),
+                          sync)
+    plain_cold = cold_ms(segsum.csr_matvec_plain, (sp.csr, unique, x), sync,
+                         read)
+    csr_lib_warm = graph_ms(lambda: A @ x, sync)
+    csr_lib = cold_ms(lambda ip, ci, u, xx: csr_tensor(
+        ip, ci, u, sp.n) @ xx, (crow32, col32, unique, x), sync)
+    csr_bound, csr_bound64 = (max(
+        csr_bytes(nnz, sp.n, index_bytes=ib) / HBM_BYTES_PER_S,
+        2 * nnz / PEAK_OPS["fp64"]) * 1e3 for ib in (4, 8))
+    say("determinism", f"csr_matvec ({sp.n} rows, {nnz} nonzeros, "
+                       f"{int(sp.csr.rows.tiles.shape[0]) - 1} tiles) vs "
+                       f"csr_matvec_plain on the CPU bit-identical: "
+                       f"{csr_equal}; vs PyTorch's CSR product: max rel err "
+                       f"{csr_rel:.3e} (bound {STEP_BOUND['float64']:g}, "
+                       f"summation order); device {csr_ms:.4f} ms cold "
+                       f"({csr_warm:.4f} warm), its plain version on the "
+                       f"card {plain_cold:.4f} ms cold ({plain_warm:.4f} "
+                       f"warm), cuSPARSE (int32) {csr_lib:.4f} ms cold "
+                       f"({csr_lib_warm:.4f} warm); bound {csr_bound:.4f} ms "
+                       f"(bytes, int32 indices; {csr_bound64:.4f} with "
+                       f"int64) = {csr_bound / csr_ms:.1%} of the cold time")
+    if not (csr_equal and csr_rel <= STEP_BOUND["float64"]):
         raise RuntimeError("determinism: csr_matvec disagrees")
-    results["csr"] = (csr_err, (csr_warm, csr_ms), (csr_lib_warm, csr_lib),
+    results["csr"] = (csr_err, (csr_warm, csr_ms), (plain_warm, plain_cold),
                       (csr_lib_warm, csr_lib), csr_bound)
     # the coarse-pair contraction on the same K: the fused kernel
     # (coarse_pair_sum) against coarse_matrix on the CPU bit for bit, and
@@ -1727,12 +1806,12 @@ def main() -> int:
     pair_lib = graph_ms(lambda: block.new_zeros(S.shape).index_add_(
         0, pair_plan.sorted_target, block), sync)
     del block, r_o, c_o
-    # each of order, unique, rows, cols read once per entry, P once, the
-    # plan's offsets and schedule, the sums written once; 42 products and
-    # 36 adds per entry
+    # each of order, unique, rows, cols read once per entry (8 B), P once,
+    # the plan's offsets and schedule (int32), the sums written once; 42
+    # products and 36 adds per entry
     n_pairs = pair_plan.n_segments
-    pair_bytes = 8 * (4 * nnz + two["P_vals"].numel() + 2 * n_pairs + 1
-                      + 36 * n_pairs)
+    pair_bytes = (8 * (4 * nnz + two["P_vals"].numel() + 36 * n_pairs)
+                  + 4 * (2 * n_pairs + 1))
     pair_bound = max(pair_bytes / HBM_BYTES_PER_S,
                      78 * nnz / PEAK_OPS["fp64"]) * 1e3
     say("determinism", f"coarse_pair_sum ({nnz} entries into {n_pairs} "
@@ -1754,34 +1833,14 @@ def main() -> int:
     results["pair"] = (float((S.cpu() - S_plain.cpu()).abs().max()),
                        (pair_warm, pair_ms), (composed_ms, composed_cold),
                        (None, None), pair_bound)
-    del K0, unique, x, A, y, y_lib, S, S_plain, A_card, A_cpu
+    del K0, unique, x, A, y, y_lib, y_plain, S, S_plain, A_card, A_cpu
     sync()
     lap("determinism")
 
     # ---------------- fe-grad-small ----------------
 
-    def grad_deck(mesh, solver, data_file, tol=None):
-        """The notch deck at Y = GRAD_Y, Y active under the log
-        transform about GRAD_Y_TRUTH, with fe_displacement_match against
-        ``data_file``."""
-        deck = notch_deck(mesh, solver)
-        deck["residuals"]["local residual"]["materials"]["block_1"][
-            "plastic"]["flow stress"]["initial yield"] = {
-                "Y": {"value": GRAD_Y, "active": True,
-                      "transform": {"log": GRAD_Y_TRUTH}}}
-        deck["qoi"] = {"name": "fe_displacement_match",
-                       "data_file": str(data_file), "weight": GRAD_WEIGHT}
-        if tol is not None:
-            deck["residuals"]["global residual"].update(
-                {"nonlinear absolute tol": tol,
-                 "nonlinear relative tol": tol})
-        return deck
-
     def save_truth(state_t, name):
-        path = work / name
-        np.save(path, np.stack(state_t.U_history).reshape(
-            len(state_t.U_history), -1, 3))
-        return path
+        return save_displacements(state_t, work / name)
 
     tight = notch_deck(FE_SMALL_MESH, FE_CG_TIGHT)
     tight["residuals"]["global residual"].update(
@@ -1850,7 +1909,7 @@ def main() -> int:
         runs.append((J, g.copy(), gstats, wall))
     say("fe-grad", f"segment_sum launches per plan and path in a gradient "
                    f"evaluation: {per_plan}")
-    if sum(per_plan.values()) != (grad_counts["segment_sum"]
+    if sum(per_plan.values()) != (grad_counts["segment_sum_tile"]
                                   + grad_counts["segment_sum_block"]):
         raise RuntimeError(f"fe-grad: the plans' launches {per_plan} do not "
                            f"add up to {grad_counts}")
@@ -1891,7 +1950,7 @@ def main() -> int:
         raise RuntimeError("fe-grad: the gradient misses cmad_tpu's or is "
                            "not reproducible")
     if not all(grad_counts[k] > 0 for k in (
-            "j2_soa_step", "segment_sum", "segment_sum_block",
+            "j2_soa_step", "segment_sum_tile", "segment_sum_block",
             "coarse_pair_sum", "csr_matvec")):
         raise RuntimeError(f"fe-grad: a kernel never ran: {grad_counts}")
     del gbundle, vg, runs
@@ -1975,7 +2034,7 @@ def main() -> int:
                  "j2_aos_step": mp_launches["j2_aos_step"],
                  "j2_total_step": mp_launches["j2_total_step"],
                  "j2_soa_history_iters": r_launches,
-                 "segment_sum": grad_counts["segment_sum"],
+                 "segment_sum_tile": grad_counts["segment_sum_tile"],
                  "segment_sum_block": grad_counts["segment_sum_block"],
                  "coarse_pair_sum": grad_counts["coarse_pair_sum"],
                  "csr_matvec": grad_counts["csr_matvec"]}
@@ -2006,7 +2065,7 @@ def main() -> int:
             (48 * T_DRIVE + 120) * N_DRIVE, ops["j2_soa_history<double, 8>"],
             N_DRIVE * T_DRIVE, sum(hist_plastic)),
         "j2_soa_history_iters": r_bound,
-        "segment_sum": (results["segsum"][4], "bytes"),
+        "segment_sum_tile": (results["segsum"][4], "bytes"),
         "segment_sum_block": (results["segsum_block"][4], "bytes"),
         "coarse_pair_sum": (results["pair"][4], "bytes"),
         "csr_matvec": (results["csr"][4], "bytes"),
@@ -2033,7 +2092,7 @@ def main() -> int:
     r_err, r_ms, r_plain = results["roofline"]
     rows += [("j2_soa_history_iters", SOURCE, f"{ROOFLINE}:40", r_err,
               (r_ms,) * 2, (r_plain,) * 2, (None, None)),
-             ("segment_sum", SEGSUM_SOURCE,
+             ("segment_sum_tile", SEGSUM_SOURCE,
               "index_add_ (no Pallas kernel): cmad_tpu_torch/fem/"
               "assembly.py, sparse_solve.py", *results["segsum"][:4]),
              ("segment_sum_block", SEGSUM_SOURCE,

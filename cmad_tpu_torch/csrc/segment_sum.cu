@@ -24,14 +24,14 @@
 // never split across threads and never summed as a tree: either would
 // change the order, and with it the bits.
 //
-// Two paths compute the same bits; the plan's longest segment picks one
-// (ops/segment_sum.py segment_path):
+// Two paths compute the same bits; the plan's longest segment and its
+// width pick one (ops/segment_sum.py segment_path):
 //
-// - the thread path (segment_sum_kernel), for plans of short segments
-//   (the assembly's scatter and dedups, at most 45 entries): one thread
-//   per output, consecutive threads on consecutive columns of one segment
-//   (or consecutive rows), the inner loop unrolled so that later entries'
-//   loads are in flight while the adds wait;
+// - the tile path (segment_sum_tile_kernel, below), for plans of short
+//   segments (the assembly's scatter and dedups and K's rows, at most 45
+//   entries) and for csr_matvec: a block per tile of consecutive
+//   segments, its values loaded in parallel and staged in shared memory,
+//   then a thread per output adding its segment from there;
 // - the block path (segment_sum_block_kernel), for plans of long
 //   segments (the two-level restriction: up to 504 entries into each of
 //   996 outputs). There one thread per output would leave the card idle
@@ -46,6 +46,9 @@
 //   latency is this path's floor. Blocks take segments longest first
 //   (the plan's schedule), so the longest starts in the first wave.
 //
+// A plan's offsets, perm and schedule are int32 (every position and
+// segment of these plans is below 2^31; ops/segment_sum.py checks).
+//
 //   coarse_pair_sum: S[p, a, b] = sum over i in [offsets[p], offsets[p + 1])
 //                of (unique[e] * P[rows[e], a]) * P[cols[e], b], e = order[i],
 //                added in ascending i from 0,
@@ -59,22 +62,21 @@
 // read again.
 //
 //   csr_matvec:  y[r] = sum over j in [indptr[r], indptr[r + 1]) of
-//                data[j] * x[cols[j]], added in ascending j from 0.
+//                data[j] * x[cols[j]], added in ascending j from 0:
+//
+// the segment sum over the row pointer of the products data[j] * x[cols[j]],
+// on the tile path.
 //
 // What bounds them on an H100 (3.35 TB/s HBM3 at 700 W): bytes, each
 // value and index read once and each output written once; at the FE
-// path's shapes (a few thousand to a few million outputs) the latency of
-// each output's dependent adds over its segment.
+// path's shapes (a few thousand to a few million outputs) the launch, the
+// memory's latency and each output's dependent adds over its segment.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "launch_grid.cuh"
-
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
@@ -89,28 +91,220 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
 
-template <typename T, bool kPerm, bool kScale>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const T* __restrict__ vals, const int64_t* __restrict__ perm,
-                   const int64_t* __restrict__ offsets,
-                   const T* __restrict__ scale, T* __restrict__ out,
-                   int64_t n_segments, int64_t width) {
-  const int64_t total = n_segments * width;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       k < total; k += stride) {
-    const int64_t s = k / width;
-    const int64_t c = k - s * width;
-    const int64_t lo = offsets[s], hi = offsets[s + 1];
-    T acc = T(0);
+// The tile path: a block per tile of consecutive segments. The tile plan
+// (ops/segment_sum.py tile_plan, built once per pattern on the host) cuts
+// the segments into tiles of at most `tile_entries` entries and as many
+// segments, never splitting one; a longer segment is a tile of its own.
+// tiles[t] = (first segment, first position) of tile t, tiles[t + 1] the
+// end. A block stages its tile in shared memory and then adds it, in
+// three steps:
+//
+//   1. its threads copy the tile's offsets, its index (perm, cols) and
+//      whatever is read in position order (the values of a plan without
+//      perm, data) into shared memory with cp.async, 16 bytes a copy
+//      (one element a copy at a range's unaligned end), all in flight at
+//      once and none held in registers;
+//   2. they gather what the index points at (vals[perm[i]], x[cols[j]]),
+//      kGatherBatch positions a thread in flight, form the product with
+//      the _rn multiply and store it in shared memory at its position;
+//   3. after a __syncthreads, a thread per output adds its segment's
+//      staged values in ascending position from 0 and writes the sum.
+//
+// A tile the copies do not serve (a lone segment longer than the shared
+// memory, a row of several columns, an array off 16 bytes, a scale read
+// in position order) is staged by plain loads in chunks, each output's
+// sum carried over in `out` by the thread that owns it, in the same order.
+//
+// What it replaces: no Pallas kernel. The kernels that ran a thread per
+// output over these plans and CSR rows, and index_add_ and the cuSPARSE
+// product before them. What bounds it: bytes at large sizes (8 B per
+// value, 4 B per index and offset, each output written once); at the
+// notch's sizes (29,040 rows of about 36 entries) the launch and one
+// dependent trip to memory. A thread per output walked its segment with
+// two dependent trips to memory per group of unrolled entries (the index,
+// then the value behind it), its neighbours' loads some 290 B away; here
+// one coalesced trip brings the whole tile's indices and values, one more
+// its gathers, and the adds read shared memory. The copies hold no
+// registers, so five blocks share an SM (33 KB of shared memory each at
+// 2,048 f64 entries): the notch's tiles (at most 585) are all resident at
+// once, and their loads are in flight together.
+constexpr int kTileThreads = 256;
+constexpr int kTileBlocksPerSM = 5;
+// the positions a thread gathers at once in step 2
+constexpr int kGatherBatch = 4;
+
+// where position i's value (column c) comes from (the tile kernel's kSrc)
+constexpr int kOrdered = 0;   // vals[i * width + c] (* scale[i])
+constexpr int kPermuted = 1;  // vals[e * width + c] (* scale[e]), e = index[i]
+constexpr int kCsr = 2;       // vals[i] * scale[index[i]]: data[j] * x[cols[j]]
+
+template <typename T, int kSrc, bool kScale>
+__device__ __forceinline__ T tile_value(const T* __restrict__ vals,
+                                        const int32_t* __restrict__ index,
+                                        const T* __restrict__ scale,
+                                        int64_t i, int c, int width) {
+  if (kSrc == kCsr) return mul_rn(vals[i], scale[index[i]]);
+  const int64_t e = kSrc == kPermuted ? index[i] : i;
+  const T v = vals[e * width + c];
+  return kScale ? mul_rn(v, scale[e]) : v;
+}
+
+// the tile kernel's shared memory: the staged values (a chunk's, at least
+// one row's, plus the copies' start below the tile), the index and the
+// offsets, each region on 16 bytes
+__host__ __device__ inline int tile_value_bytes(int capacity, int size) {
+  return ((capacity + 4) * size + 15) & ~15;
+}
+__host__ __device__ inline int tile_index_words(int tile_entries) {
+  return (tile_entries + 7) & ~3;
+}
+__host__ __device__ inline int tile_offset_words(int tile_entries) {
+  return tile_entries + 8;
+}
+
+// kBytes from global to shared memory, asynchronously (cp.async)
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// elements [lo, hi) of src (16-byte aligned) into shared memory at dst,
+// element i at dst[i - base] with base = lo rounded down to 16 bytes (the
+// elements from base on come along): whole 16-byte chunks below hi, then
+// the rest one element a copy. Returns base.
+template <typename E>
+__device__ __forceinline__ int64_t copy_range(E* dst, const E* src,
+                                              int64_t lo, int64_t hi) {
+  constexpr int kPer = 16 / sizeof(E);
+  const int64_t base = lo & ~int64_t(kPer - 1);
+  const int64_t whole = hi & ~int64_t(kPer - 1);
+  for (int64_t c = base + kPer * threadIdx.x; c < whole;
+       c += kPer * kTileThreads)
+    copy_async<16>(dst + (c - base), src + c);
+  for (int64_t i = whole + threadIdx.x; i < hi; i += kTileThreads)
+    copy_async<sizeof(E)>(dst + (i - base), src + i);
+  return base;
+}
+
+template <typename T, int kSrc, bool kScale>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
+segment_sum_tile_kernel(const T* __restrict__ vals,
+                        const int32_t* __restrict__ index,
+                        const T* __restrict__ scale,
+                        const int32_t* __restrict__ offsets,
+                        const int2* __restrict__ tiles, T* __restrict__ out,
+                        int width, int tile_entries, int aligned) {
+  constexpr bool kIndex = kSrc != kOrdered;
+  extern __shared__ __align__(16) unsigned char tile_raw[];
+  const int capacity = tile_entries > width ? tile_entries : width;
+  T* val_s = reinterpret_cast<T*>(tile_raw);
+  int32_t* idx_s = reinterpret_cast<int32_t*>(
+      tile_raw + tile_value_bytes(capacity, sizeof(T)));
+  int32_t* off_s = idx_s + tile_index_words(tile_entries);
+  const int2 here = tiles[blockIdx.x], next = tiles[blockIdx.x + 1];
+  const int s0 = here.x, n_seg = next.x - here.x;
+  const int64_t lo = here.y, hi = next.y;
+  const int tid = threadIdx.x;
+  const int n_out = n_seg * width;
+  // step 3 for the positions [c0, c1) staged at st[i - c0]: output o
+  // (segment s0 + o / width, column o % width) adds its values among them
+  // to what an earlier chunk left in out (from 0 at its first)
+  auto add = [&](const T* st, const int32_t* off, int64_t c0, int64_t c1,
+                 bool first) {
+    for (int o = tid; o < n_out; o += kTileThreads) {
+      const int s = o / width;
+      const int c = o - s * width;
+      const int64_t a = off[s], b = off[s + 1];
+      T* dst = out + (static_cast<int64_t>(s0) * width + o);
+      if (a == b) {
+        if (first) *dst = T(0);
+        continue;
+      }
+      if (b <= c0 || a >= c1) continue;
+      T acc = a >= c0 ? T(0) : *dst;
+      const T* col = st + c;
+      const int i0 = static_cast<int>((a > c0 ? a : c0) - c0);
+      const int i1 = static_cast<int>((b < c1 ? b : c1) - c0);
 #pragma unroll 8
-    for (int64_t i = lo; i < hi; ++i) {
-      const int64_t e = kPerm ? perm[i] : i;
-      T v = vals[e * width + c];
-      if (kScale) v = mul_rn(v, scale[e]);
-      acc = add_rn(acc, v);
+      for (int i = i0; i < i1; ++i) acc = add_rn(acc, col[i * width]);
+      *dst = acc;
     }
-    out[k] = acc;
+  };
+  if (aligned && width == 1 && hi - lo <= tile_entries &&
+      !(kSrc == kOrdered && kScale)) {
+    // step 1: the copies
+    const int32_t* off =
+        off_s + (s0 - copy_range(off_s, offsets, s0, s0 + n_seg + 1));
+    T* st = val_s;  // position i at st[i - lo]
+    if (kSrc != kPermuted) st += lo - copy_range(val_s, vals, lo, hi);
+    const int32_t* ix = idx_s;
+    if (kIndex) ix += lo - copy_range(idx_s, index, lo, hi);
+    copies_done();
+    __syncthreads();
+    // step 2: the gathers and products, each thread's own positions
+    if (kIndex) {
+      const int n = static_cast<int>(hi - lo);
+      for (int i0 = tid; i0 < n; i0 += kGatherBatch * kTileThreads) {
+        int32_t e[kGatherBatch];
+        T g[kGatherBatch], f[kGatherBatch];
+#pragma unroll
+        for (int u = 0; u < kGatherBatch; ++u) {
+          const int i = i0 + u * kTileThreads;
+          if (i < n) e[u] = ix[i];
+        }
+#pragma unroll
+        for (int u = 0; u < kGatherBatch; ++u) {
+          const int i = i0 + u * kTileThreads;
+          if (i >= n) continue;
+          if (kSrc == kPermuted) g[u] = vals[e[u]];
+          if (kScale) f[u] = scale[e[u]];
+        }
+#pragma unroll
+        for (int u = 0; u < kGatherBatch; ++u) {
+          const int i = i0 + u * kTileThreads;
+          if (i >= n) continue;
+          if (kSrc == kCsr)
+            st[i] = mul_rn(st[i], f[u]);
+          else
+            st[i] = kScale ? mul_rn(g[u], f[u]) : g[u];
+        }
+      }
+      __syncthreads();
+    }
+    add(st, off, lo, hi, true);
+    return;
+  }
+  // plain loads, chunk by chunk
+  for (int k = tid; k <= n_seg; k += kTileThreads)
+    off_s[k] = offsets[s0 + k];
+  const int chunk = capacity / width;
+  const int64_t n_chunks = hi > lo ? (hi - lo + chunk - 1) / chunk : 1;
+  for (int64_t k = 0; k < n_chunks; ++k) {
+    const int64_t c0 = lo + k * chunk;
+    const int64_t c1 = hi - c0 < chunk ? hi : c0 + chunk;
+    if (k > 0) __syncthreads();  // chunk k - 1's adds are done with val_s
+    const int n = static_cast<int>(c1 - c0) * width;
+#pragma unroll 4
+    for (int q = tid; q < n; q += kTileThreads) {
+      const int di = q / width;
+      val_s[q] = tile_value<T, kSrc, kScale>(vals, index, scale, c0 + di,
+                                             q - di * width, width);
+    }
+    __syncthreads();
+    add(val_s, off_s, c0, c1, k == 0);
   }
 }
 
@@ -209,10 +403,10 @@ __device__ __forceinline__ T add_chunk(T acc, const T* col, int m) {
 template <typename T, bool kPerm, bool kScale>
 __global__ void __launch_bounds__(kStagers + kBlockMaxWidth)
 segment_sum_block_kernel(const T* __restrict__ vals,
-                         const int64_t* __restrict__ perm,
-                         const int64_t* __restrict__ offsets,
+                         const int32_t* __restrict__ perm,
+                         const int32_t* __restrict__ offsets,
                          const T* __restrict__ scale,
-                         const int64_t* __restrict__ schedule,
+                         const int32_t* __restrict__ schedule,
                          T* __restrict__ out, int width, int chunk) {
   const int ld = staged_ld(chunk);
   const int adders = static_cast<int>(blockDim.x) - kStagers;
@@ -294,8 +488,8 @@ coarse_pair_sum_kernel(const T* __restrict__ unique,
                        const int64_t* __restrict__ rows,
                        const int64_t* __restrict__ cols,
                        const T* __restrict__ P,
-                       const int64_t* __restrict__ offsets,
-                       const int64_t* __restrict__ schedule,
+                       const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ schedule,
                        T* __restrict__ out, int chunk) {
   constexpr int kW2 = W * W;
   constexpr int kAdders = (kW2 + 31) / 32 * 32;
@@ -371,56 +565,6 @@ coarse_pair_sum_kernel(const T* __restrict__ unique,
   if (tid < kW2) out[p * kW2 + tid] = acc;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-csr_matvec_kernel(const int64_t* __restrict__ indptr,
-                  const int64_t* __restrict__ cols, const T* __restrict__ data,
-                  const T* __restrict__ x, T* __restrict__ y, int64_t n_rows) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       r < n_rows; r += stride) {
-    const int64_t lo = indptr[r], hi = indptr[r + 1];
-    T acc = T(0);
-#pragma unroll 8
-    for (int64_t j = lo; j < hi; ++j) acc = add_rn(acc, mul_rn(data[j], x[cols[j]]));
-    y[r] = acc;
-  }
-}
-
-template <typename T, bool kPerm, bool kScale>
-int launch_segment_sum(const void* vals, const void* perm, const void* offsets,
-                       const void* scale, void* out, long long n_segments,
-                       long long width, void* stream) {
-  const int64_t total = static_cast<int64_t>(n_segments) * width;
-  if (total <= 0) return 0;
-  auto kernel = segment_sum_kernel<T, kPerm, kScale>;
-  static FullGrid full;
-  const int grid = grid_for(full.blocks(kernel, kThreads),
-                            (total + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const int64_t*>(perm),
-      static_cast<const int64_t*>(offsets), static_cast<const T*>(scale),
-      static_cast<T*>(out), n_segments, width);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_segment_sum(const void* vals, const void* perm,
-                         const void* offsets, const void* scale, void* out,
-                         long long n_segments, long long width, void* stream) {
-  if (perm && scale)
-    return launch_segment_sum<T, true, true>(vals, perm, offsets, scale, out,
-                                             n_segments, width, stream);
-  if (perm)
-    return launch_segment_sum<T, true, false>(vals, perm, offsets, scale, out,
-                                              n_segments, width, stream);
-  if (scale)
-    return launch_segment_sum<T, false, true>(vals, perm, offsets, scale, out,
-                                              n_segments, width, stream);
-  return launch_segment_sum<T, false, false>(vals, perm, offsets, scale, out,
-                                             n_segments, width, stream);
-}
-
 // Shared memory above 48 KB must be allowed per kernel. Each launcher
 // instance keeps what it allowed (`allowed`), so the attribute is set once
 // per size, by the first launch: a launch inside a CUDA graph's capture
@@ -451,6 +595,63 @@ size_t staging_bytes(int width, int chunk) {
   return 2ull * width * staged_ld(chunk) * sizeof(T);
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int kSrc, bool kScale>
+int launch_segment_sum_tile(const void* vals, const void* index,
+                            const void* scale, const void* offsets,
+                            const void* tiles, void* out, long long n_tiles,
+                            long long width, long long tile_entries,
+                            void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (width <= 0 || tile_entries <= 0 || n_tiles > 0x7fffffffLL ||
+      tile_entries * width > (1LL << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = static_cast<int>(tile_entries);
+  const int capacity = e > width ? e : static_cast<int>(width);
+  const size_t smem = tile_value_bytes(capacity, sizeof(T)) +
+                      4 * (tile_index_words(e) + tile_offset_words(e));
+  auto kernel = segment_sum_tile_kernel<T, kSrc, kScale>;
+  static size_t allowed = 48 * 1024;
+  const cudaError_t rc = allow_staging(kernel, smem, allowed);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  // the copies need the arrays they read on 16 bytes
+  const bool aligned =
+      aligned16(vals) && aligned16(index) && aligned16(offsets);
+  kernel<<<static_cast<unsigned>(n_tiles), kTileThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vals), static_cast<const int32_t*>(index),
+      static_cast<const T*>(scale), static_cast<const int32_t*>(offsets),
+      static_cast<const int2*>(tiles), static_cast<T*>(out),
+      static_cast<int>(width), e, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_segment_sum_tile(const void* vals, const void* perm,
+                              const void* offsets, const void* scale,
+                              const void* tiles, void* out,
+                              long long n_tiles, long long width,
+                              long long tile_entries, void* stream) {
+  if (perm && scale)
+    return launch_segment_sum_tile<T, kPermuted, true>(
+        vals, perm, scale, offsets, tiles, out, n_tiles, width,
+        tile_entries, stream);
+  if (perm)
+    return launch_segment_sum_tile<T, kPermuted, false>(
+        vals, perm, scale, offsets, tiles, out, n_tiles, width,
+        tile_entries, stream);
+  if (scale)
+    return launch_segment_sum_tile<T, kOrdered, true>(
+        vals, perm, scale, offsets, tiles, out, n_tiles, width,
+        tile_entries, stream);
+  return launch_segment_sum_tile<T, kOrdered, false>(
+      vals, perm, scale, offsets, tiles, out, n_tiles, width, tile_entries,
+      stream);
+}
+
 template <typename T, bool kPerm, bool kScale>
 int launch_segment_sum_block(const void* vals, const void* perm,
                              const void* offsets, const void* scale,
@@ -470,9 +671,9 @@ int launch_segment_sum_block(const void* vals, const void* perm,
   const int threads = kStagers + 32 * ((w + 31) / 32);
   kernel<<<static_cast<unsigned>(n_segments), threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const int64_t*>(perm),
-      static_cast<const int64_t*>(offsets), static_cast<const T*>(scale),
-      static_cast<const int64_t*>(schedule), static_cast<T*>(out), w, chunk);
+      static_cast<const T*>(vals), static_cast<const int32_t*>(perm),
+      static_cast<const int32_t*>(offsets), static_cast<const T*>(scale),
+      static_cast<const int32_t*>(schedule), static_cast<T*>(out), w, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -515,23 +716,8 @@ int launch_coarse_pair_sum(const void* unique, const void* order,
            smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(unique), static_cast<const int64_t*>(order),
       static_cast<const int64_t*>(rows), static_cast<const int64_t*>(cols),
-      static_cast<const T*>(P), static_cast<const int64_t*>(offsets),
-      static_cast<const int64_t*>(schedule), static_cast<T*>(out), chunk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_csr_matvec(const void* indptr, const void* cols, const void* data,
-                      const void* x, void* y, long long n_rows, void* stream) {
-  if (n_rows <= 0) return 0;
-  auto kernel = csr_matvec_kernel<T>;
-  static FullGrid full;
-  const int grid = grid_for(full.blocks(kernel, kThreads),
-                            (n_rows + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(indptr), static_cast<const int64_t*>(cols),
-      static_cast<const T*>(data), static_cast<const T*>(x),
-      static_cast<T*>(y), n_rows);
+      static_cast<const T*>(P), static_cast<const int32_t*>(offsets),
+      static_cast<const int32_t*>(schedule), static_cast<T*>(out), chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,24 +726,34 @@ int launch_csr_matvec(const void* indptr, const void* cols, const void* data,
 extern "C" {
 
 // Each entry returns cudaGetLastError() after its launch (0 = success).
-// perm and scale may be null: the identity order, and no scale.
-int segment_sum_f32(const void* vals, const void* perm, const void* offsets,
-                    const void* scale, void* out, long long n_segments,
-                    long long width, void* stream) {
-  return dispatch_segment_sum<float>(vals, perm, offsets, scale, out,
-                                     n_segments, width, stream);
+//
+// The tile path: out (n_segments, width) over the plan's tiles (n_tiles + 1
+// int32 pairs of (first segment, first position)); perm (int32) and scale
+// may be null: the identity order, and no scale; offsets int32; a tile holds
+// at most tile_entries entries and segments, or one longer segment.
+int segment_sum_tile_f32(const void* vals, const void* perm,
+                         const void* offsets, const void* scale,
+                         const void* tiles, void* out, long long n_tiles,
+                         long long width, long long tile_entries,
+                         void* stream) {
+  return dispatch_segment_sum_tile<float>(vals, perm, offsets, scale, tiles,
+                                          out, n_tiles, width, tile_entries,
+                                          stream);
 }
 
-int segment_sum_f64(const void* vals, const void* perm, const void* offsets,
-                    const void* scale, void* out, long long n_segments,
-                    long long width, void* stream) {
-  return dispatch_segment_sum<double>(vals, perm, offsets, scale, out,
-                                      n_segments, width, stream);
+int segment_sum_tile_f64(const void* vals, const void* perm,
+                         const void* offsets, const void* scale,
+                         const void* tiles, void* out, long long n_tiles,
+                         long long width, long long tile_entries,
+                         void* stream) {
+  return dispatch_segment_sum_tile<double>(vals, perm, offsets, scale, tiles,
+                                           out, n_tiles, width, tile_entries,
+                                           stream);
 }
 
-// The block path: the same sums as segment_sum_*, one block per segment in
-// the order `schedule` lists them (the plan's longest first); width at
-// most 64.
+// The block path: the same sums as segment_sum_tile_*, one block per
+// segment in the order `schedule` lists them (the plan's longest first);
+// perm (may be null), offsets and schedule int32; width at most 64.
 int segment_sum_block_f32(const void* vals, const void* perm,
                           const void* offsets, const void* scale,
                           const void* schedule, void* out,
@@ -580,7 +776,8 @@ int segment_sum_block_f64(const void* vals, const void* perm,
 
 // out (n_pairs, width, width): the coarse pairs' sums; P is (n_dofs,
 // width) with width 6; unique, rows and cols the fine COO triplet, order
-// its entries in pair order, offsets and schedule the pair plan's.
+// its entries in pair order (order, rows, cols int64), offsets and
+// schedule the pair plan's (int32).
 int coarse_pair_sum_f32(const void* unique, const void* order,
                         const void* rows, const void* cols, const void* P,
                         const void* offsets, const void* schedule, void* out,
@@ -598,14 +795,20 @@ int coarse_pair_sum_f64(const void* unique, const void* order,
                                         width, stream);
 }
 
-int csr_matvec_f32(const void* indptr, const void* cols, const void* data,
-                   const void* x, void* y, long long n_rows, void* stream) {
-  return launch_csr_matvec<float>(indptr, cols, data, x, y, n_rows, stream);
+// y = A x on the tile path: the row pointer's tiles, indptr and cols int32,
+// each row summed in ascending column position from 0.
+int csr_matvec_f32(const void* tiles, const void* indptr, const void* cols,
+                   const void* data, const void* x, void* y,
+                   long long n_tiles, long long tile_entries, void* stream) {
+  return launch_segment_sum_tile<float, kCsr, true>(
+      data, cols, x, indptr, tiles, y, n_tiles, 1, tile_entries, stream);
 }
 
-int csr_matvec_f64(const void* indptr, const void* cols, const void* data,
-                   const void* x, void* y, long long n_rows, void* stream) {
-  return launch_csr_matvec<double>(indptr, cols, data, x, y, n_rows, stream);
+int csr_matvec_f64(const void* tiles, const void* indptr, const void* cols,
+                   const void* data, const void* x, void* y,
+                   long long n_tiles, long long tile_entries, void* stream) {
+  return launch_segment_sum_tile<double, kCsr, true>(
+      data, cols, x, indptr, tiles, y, n_tiles, 1, tile_entries, stream);
 }
 
 }  // extern "C"

@@ -19,9 +19,10 @@ once per problem.
 Every sum over a fixed pattern here is reproducible
 (``ops/segment_sum.py``): the CSR dedup of the embedded-BC data and the
 assembled diagonal are segment sums over plans built once per problem,
-and the CG's sparse matrix-vector product is ``csr_matvec``, each row
-summed in column order by one thread on the card (PyTorch's CSR product,
-the plain version, on the CPU). The JAX package computes these outside
+and the CG's sparse matrix-vector product is ``csr_matvec`` over the
+pattern's :class:`~cmad_tpu_torch.ops.segment_sum.CsrPlan`, each row summed
+in column order (the segment sum's tile path on the card, its plain
+version on the CPU: the same bits). The JAX package computes these outside
 any Pallas kernel; its node-block ELL form (``_node_block_ell``, a TPU
 gather workaround) is not ported.
 
@@ -44,7 +45,9 @@ import scipy.sparse.linalg
 import torch
 
 from cmad_tpu_torch.ops.segment_sum import (
+    CsrPlan,
     SegmentPlan,
+    csr_plan,
     make_csr_matvec,
     plan_from_sorted,
     segment_sum,
@@ -86,9 +89,10 @@ class EmbeddedSparsity:
     buffer (assembled free-free entries + appended prescribed-diagonal
     entries) in lex (row, col) order; ``segment_ids`` dedups them, and
     ``dedup_plan`` is that sum's segment plan;
-    ``(indptr, col_indices)`` is the unique CSR pattern and ``rows`` the
-    row of each unique entry; ``diag_idx`` maps each row to its diagonal
-    slot in the unique data. Tensors on the problem's device;
+    ``csr`` is the unique CSR pattern (its row pointer and columns, the
+    plan ``csr_matvec`` reads), ``col_indices`` and ``rows`` the column
+    and row of each unique entry; ``diag_idx`` maps each row to its
+    diagonal slot in the unique data. Tensors on the problem's device;
     ``indptr_np``/``col_indices_np`` are host copies for the host solve
     and the two-level setup.
     """
@@ -96,10 +100,10 @@ class EmbeddedSparsity:
     perm: Tensor
     segment_ids: Tensor
     dedup_plan: SegmentPlan
-    indptr: Tensor
     col_indices: Tensor
     rows: Tensor
     diag_idx: Tensor
+    csr: CsrPlan
     indptr_np: np.ndarray
     col_indices_np: np.ndarray
 
@@ -109,7 +113,7 @@ class EmbeddedSparsity:
 
     @property
     def n(self) -> int:
-        return int(self.indptr.shape[0]) - 1
+        return self.csr.n
 
 
 def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
@@ -161,8 +165,8 @@ def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
         perm=on(perm), segment_ids=on(segment_ids),
         dedup_plan=plan_from_sorted(perm, segment_ids, ucols.shape[0],
                                     n_assembled + n_presc, dev),
-        indptr=on(indptr),
         col_indices=on(ucols), rows=on(urows), diag_idx=on(diag_idx),
+        csr=csr_plan(indptr, ucols, dev),
         indptr_np=indptr, col_indices_np=ucols)
 
 
@@ -173,8 +177,7 @@ def _csr_operator(K_data: Tensor, sparsity: EmbeddedSparsity):
     """(unique_data, matvec): dedup the embedded-BC data buffer into the
     cached CSR pattern and wrap the sparse product."""
     unique = segment_sum(K_data, sparsity.dedup_plan)
-    return unique, make_csr_matvec(sparsity.indptr, sparsity.col_indices,
-                                   unique, sparsity.n)
+    return unique, make_csr_matvec(sparsity.csr, unique)
 
 
 def _embedded_bc_enforce(K: CooMatrix, presc_idx: Tensor):

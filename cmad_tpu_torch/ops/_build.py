@@ -128,9 +128,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
-    for name in ("segment_sum_f32", "segment_sum_f64"):
+    for name in ("segment_sum_tile_f32", "segment_sum_tile_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
+        fn.argtypes = [ptr] * 6 + [i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
     for name in ("segment_sum_block_f32", "segment_sum_block_f64"):
         fn = getattr(lib, name)
@@ -142,7 +142,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in ("csr_matvec_f32", "csr_matvec_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        fn.argtypes = [ptr] * 6 + [i64, i64, ptr]
         fn.restype = ctypes.c_int
     lib.j2_error_string.argtypes = [ctypes.c_int]
     lib.j2_error_string.restype = ctypes.c_char_p

@@ -37,7 +37,7 @@ _LABEL = re.compile(r"^\s*\.L_x_(\d+):")
 # the kernels' names (each translation unit's anonymous namespace adds a
 # prefix of its own to the mangled name)
 _KERNEL = re.compile(
-    r"(j2_[a-z]+_[a-z]+|segment_sum(?:_block)?|coarse_pair_sum|csr_matvec)"
+    r"(j2_[a-z]+_[a-z]+|segment_sum(?:_block|_tile)?|coarse_pair_sum)"
     r"_kernelI([fd])((?:L[ib]\d+E)*)")
 
 FP64 = ("DFMA", "DADD", "DMUL")

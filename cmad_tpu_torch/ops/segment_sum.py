@@ -12,25 +12,30 @@ built once per pattern, sorts the entries by target (stably) and records
 where each target's segment starts (CSR-like offsets); the CUDA kernel
 ``segment_sum`` (``csrc/segment_sum.cu``) then sums each segment in
 ascending entry order, starting from 0: the CPU's order, so the card's sum
-equals the CPU's bit for bit, and run after run.
+equals the CPU's bit for bit, and run after run. The plan also cuts its
+segments into tiles of consecutive segments (:func:`tile_plan`); the
+arrays the kernels read are int32.
 
 - :func:`segment_sum` — ``out[s] = sum of vals[e] (* scale[e]) over the
   entries e of segment s``; the plain version is ``index_add_``. It is
   differentiable in ``vals``: the backward is the gather
   ``grad_out[segment of entry]``. The plan picks one of two kernels
-  (:func:`segment_path`): one thread per output where every segment is
-  short (``segment_sum``), one block per segment, longest first, where
-  some segment is long (``segment_sum_block``); both add each output's
-  entries in the same order, so they give the same bits.
+  (:func:`segment_path`): one block per segment, longest first, where some
+  segment is long (``segment_sum_block``), else one block per tile of
+  consecutive segments (``segment_sum_tile``: the tile's values staged in
+  shared memory, then a thread per output adds its segment); both add each
+  output's entries in the same order, so they give the same bits.
 - :func:`coarse_pair_sum` — the two-level coarse matrix's sums per coarse
   pair, ``sum of (unique[e] * P[rows[e], a]) * P[cols[e], b]``, with the
   products formed inside the kernel (``coarse_pair_sum``) rather than
   materialized; the plain version is that product and :func:`segment_sum`.
 - :func:`segment_gather` — ``x[segment of entry]``, whose backward is the
   segment sum (so the FE gathers of U transpose reproducibly too).
-- :func:`csr_matvec` — ``y = A x`` for a CSR matrix, each row summed in
-  column order by one thread (CUDA kernel ``csr_matvec``); the plain
-  version is PyTorch's CSR product.
+- :func:`csr_matvec` — ``y = A x`` for a CSR matrix over a
+  :class:`CsrPlan`, each row summed in column order: the segment sum of
+  ``data[j] * x[cols[j]]`` over the row pointer, on the tile path (CUDA
+  entry ``csr_matvec``); the plain version, :func:`csr_matvec_plain`, is
+  that product and ``index_add_``.
 
 The wrappers take the plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises. Each adds one to its launch count where it
@@ -38,7 +43,6 @@ launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,12 +50,12 @@ import torch
 
 from cmad_tpu_torch.typing import Tensor
 
-segment_sum_launches = 0
+segment_sum_tile_launches = 0
 segment_sum_block_launches = 0
 coarse_pair_sum_launches = 0
 csr_matvec_launches = 0
-# segment_sum and segment_sum_block launches by plan shape and path:
-# (n_entries, n_segments, width, "thread" or "block") -> launches
+# segment_sum_tile and segment_sum_block launches by plan shape and path:
+# (n_entries, n_segments, width, "tile" or "block") -> launches
 plan_launches: dict[tuple[int, int, int, str], int] = {}
 
 _DTYPES = (torch.float32, torch.float64)
@@ -60,26 +64,37 @@ _DTYPES = (torch.float32, torch.float64)
 # LONG_SEGMENT entries and the plan sums at most BLOCK_MAX_SPREAD times
 # that many entries in all (and the width fits the block's adders): its
 # time is the longest segment's chain of adds as long as the other
-# segments fit beside it in about one wave of its blocks (132 SMs x 4),
-# while the thread path runs one thread per output. Measured on an H100
-# (tools/torch_kernel_probe.py --segsum, uniform plans, PERF.md): 166
-# segments of 6 columns are faster on the block path from 32 entries on
-# (16: 2.55 us against the thread path's 2.34); 256-entry segments of 6
-# columns up to 528 of them (7.23 us against 9.68), not at 1,056 (12.79
-# against 9.84). The FE path's short plans (at most 45 entries, thousands
-# of segments) take the thread path, the restriction (504 entries, 58
-# times that in all) and the coarse pairs (13,538; 78 times) the block
-# path.
+# segments fit beside it in about one wave of its blocks (132 SMs x 4).
+# Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (tools/torch_kernel_probe.py --segsum, uniform plans, PERF.md) against a
+# thread per output (the kernel that summed short plans before the tile
+# kernel): 166 segments of 6 columns are faster on the block path from 32
+# entries on (16: 2.55 us against 2.34); 256-entry segments of 6 columns
+# up to 528 of them (7.23 us against 9.68), not at 1,056 (12.79 against
+# 9.84). The FE path's short plans (at
+# most 45 entries, thousands of segments) take the tile path, the
+# restriction (504 entries, 58 times that in all) and the coarse pairs
+# (13,538; 78 times) the block path.
 LONG_SEGMENT = 32
 BLOCK_MAX_SPREAD = 512
 BLOCK_MAX_WIDTH = 64      # adder threads per block (csrc: kBlockMaxWidth)
 COARSE_PAIR_WIDTH = 6     # the coarse pairs' P width (csrc: W)
+# The tile path's tiles: at most TILE_ENTRIES entries and as many segments
+# (a longer segment is a tile of its own); a tile's offsets, index and
+# values are a block's shared memory (33 KB in f64, five blocks an SM).
+# The tile path sums every plan the block path does not take. The FE
+# path's are of one column; a row of several columns is staged by plain
+# loads, chunk by chunk, at the same bits but slower (166 segments of 16
+# entries x 6 columns: 0.0178 ms against 0.0024 for a thread per output;
+# the same card and probe, PERF.md).
+TILE_ENTRIES = 2048
+_INT32_MAX = 2**31 - 1
 
 
 def reset_launch_counts() -> None:
-    global segment_sum_launches, segment_sum_block_launches
+    global segment_sum_tile_launches, segment_sum_block_launches
     global coarse_pair_sum_launches, csr_matvec_launches
-    segment_sum_launches = 0
+    segment_sum_tile_launches = 0
     segment_sum_block_launches = 0
     coarse_pair_sum_launches = 0
     csr_matvec_launches = 0
@@ -87,7 +102,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    return {"segment_sum": segment_sum_launches,
+    return {"segment_sum_tile": segment_sum_tile_launches,
             "segment_sum_block": segment_sum_block_launches,
             "coarse_pair_sum": coarse_pair_sum_launches,
             "csr_matvec": csr_matvec_launches}
@@ -105,7 +120,10 @@ class SegmentPlan:
     lists). ``max_length`` is the longest segment's entry count and
     ``schedule`` (n_segments,) the segment ids longest first (ties in
     ascending id): the order in which the block path's blocks take
-    them."""
+    them. ``tiles`` is :func:`tile_plan` at ``tile_entries``, which the
+    tile path reads. The kernels read ``perm``, ``offsets``, ``schedule``
+    and ``tiles``, all int32; ``sorted_target`` and ``target`` (int64) are
+    the plain version's ``index_add_`` index and the gather's."""
 
     offsets: Tensor
     perm: Tensor | None
@@ -115,10 +133,45 @@ class SegmentPlan:
     n_entries: int
     max_length: int
     schedule: Tensor
+    tiles: Tensor
+    tile_entries: int
 
 
 def _index(a, device) -> Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def _index32(a, device) -> Tensor:
+    a = np.asarray(a, dtype=np.int64)
+    if a.size and (a.min() < 0 or a.max() > _INT32_MAX):
+        raise ValueError("a plan's positions and segments must fit int32")
+    return torch.as_tensor(a.astype(np.int32), device=device)
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def tile_plan(offsets, tile_entries: int = TILE_ENTRIES) -> np.ndarray:
+    """``(n_tiles + 1, 2)``: the first segment and first position of each
+    tile of the segments ``[offsets[s], offsets[s + 1])``, then the end.
+    Tiles cover the segments in order, each with at most ``tile_entries``
+    entries and as many segments; a segment longer than ``tile_entries``
+    is a tile of its own."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    n = offsets.shape[0] - 1
+    starts = []
+    s = 0
+    while s < n:
+        starts.append(s)
+        fits = int(np.searchsorted(offsets, offsets[s] + tile_entries,
+                                   side="right")) - 1
+        s = max(s + 1, min(fits, s + tile_entries, n))
+    starts.append(n)
+    starts = np.asarray(starts, dtype=np.int64)
+    return np.stack([starts, offsets[starts]], axis=1)
 
 
 def plan_from_target(target, n_segments: int, device) -> SegmentPlan:
@@ -151,13 +204,15 @@ def plan_from_sorted(perm, sorted_target, n_segments: int, n_entries: int,
         target = sorted_target
     lengths = np.diff(offsets)
     return SegmentPlan(
-        offsets=_index(offsets, device),
-        perm=None if perm is None else _index(perm, device),
+        offsets=_index32(offsets, device),
+        perm=None if perm is None else _index32(perm, device),
         sorted_target=_index(sorted_target, device),
         target=None if target is None else _index(target, device),
         n_segments=int(n_segments), n_entries=int(n_entries),
         max_length=int(lengths.max(initial=0)),
-        schedule=_index(np.argsort(-lengths, kind="stable"), device))
+        schedule=_index32(np.argsort(-lengths, kind="stable"), device),
+        tiles=_index32(tile_plan(offsets), device),
+        tile_entries=TILE_ENTRIES)
 
 
 def plan_from_offsets(offsets, device) -> SegmentPlan:
@@ -222,21 +277,22 @@ def segment_path(plan: SegmentPlan, width: int) -> str:
     ``"block"`` where its longest segment has at least
     :data:`LONG_SEGMENT` entries, it sums at most :data:`BLOCK_MAX_SPREAD`
     times that many entries, and ``width`` fits the block's adders; else
-    ``"thread"``. A property of the plan's shape alone."""
+    ``"tile"``. A property of the plan's shape alone."""
     summed = int(plan.sorted_target.shape[0])
     if (plan.max_length >= LONG_SEGMENT
             and summed <= BLOCK_MAX_SPREAD * plan.max_length
             and 0 < width <= BLOCK_MAX_WIDTH):
         return "block"
-    return "thread"
+    return "tile"
 
 
 def _check_index(kernel: str, name: str, idx: Tensor | None,
-                 like: Tensor) -> None:
+                 like: Tensor, dtype: torch.dtype = torch.int32) -> None:
     if idx is not None and (idx.device != like.device
-                            or idx.dtype != torch.int64
+                            or idx.dtype != dtype
                             or not idx.is_contiguous()):
-        raise ValueError(f"{kernel}: {name} must be contiguous int64 on "
+        raise ValueError(f"{kernel}: {name} must be contiguous "
+                         f"{str(dtype).removeprefix('torch.')} on "
                          f"{like.device}")
 
 
@@ -249,58 +305,68 @@ def _launched(kernel: str, lib, rc: int) -> None:
 def segment_sum_cuda(vals: Tensor, plan: SegmentPlan,
                      scale: Tensor | None = None,
                      path: str | None = None) -> Tensor:
-    """The segment sum on the card: ``segment_sum`` (one thread per
-    output) or ``segment_sum_block`` (one block per segment), as
+    """The segment sum on the card: ``segment_sum_tile`` (one block per
+    tile of segments) or ``segment_sum_block`` (one block per segment), as
     :func:`segment_path` picks for the plan, or as ``path`` says (the
-    card's checks run a long plan through both). The same bits either
+    card's checks run each plan through both paths). The same bits either
     way."""
     from cmad_tpu_torch.ops._build import load_library
 
-    global segment_sum_launches, segment_sum_block_launches
+    global segment_sum_tile_launches, segment_sum_block_launches
+    width = int(np.prod(vals.shape[1:], dtype=np.int64))
+    path = segment_path(plan, width) if path is None else path
+    if path not in ("tile", "block") or (
+            path == "block" and not 0 < width <= BLOCK_MAX_WIDTH):
+        raise ValueError(f"segment_sum: no {path!r} path at width {width}")
+    # the plan's index arrays that the path reads
+    for name in ("offsets", "perm",
+                 "tiles" if path == "tile" else "schedule"):
+        _check_index("segment_sum", f"plan.{name}", getattr(plan, name),
+                     vals)
     if vals.device.type != "cuda":
         raise ValueError(f"segment_sum: the CUDA kernel takes CUDA tensors; "
                          f"got device {vals.device}")
     _check("vals", vals, vals)
     if not vals.is_contiguous():
         raise ValueError("segment_sum: vals must be contiguous")
-    for name, idx in (("offsets", plan.offsets), ("perm", plan.perm),
-                      ("schedule", plan.schedule)):
-        _check_index("segment_sum", f"plan.{name}", idx, vals)
     if scale is not None:
         _check("scale", scale, vals)
         if tuple(scale.shape) != (plan.n_entries,) \
                 or not scale.is_contiguous():
             raise ValueError(f"segment_sum: scale must be a contiguous "
                              f"({plan.n_entries},) vector")
-    width = int(np.prod(vals.shape[1:], dtype=np.int64))
-    path = segment_path(plan, width) if path is None else path
-    if path not in ("thread", "block") or (
-            path == "block" and not 0 < width <= BLOCK_MAX_WIDTH):
-        raise ValueError(f"segment_sum: no {path!r} path at width {width}")
     out = vals.new_empty((plan.n_segments, *vals.shape[1:]))
     lib = load_library()
     sfx = "f64" if vals.dtype == torch.float64 else "f32"
-    perm = None if plan.perm is None else plan.perm.data_ptr()
     sc = None if scale is None else scale.data_ptr()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         if path == "block":
             rc = getattr(lib, f"segment_sum_block_{sfx}")(
-                vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
-                plan.schedule.data_ptr(), out.data_ptr(), plan.n_segments,
-                width, stream)
+                vals.data_ptr(), _ptr(plan.perm), plan.offsets.data_ptr(),
+                sc, plan.schedule.data_ptr(), out.data_ptr(),
+                plan.n_segments, width, stream)
         else:
-            rc = getattr(lib, f"segment_sum_{sfx}")(
-                vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
-                out.data_ptr(), plan.n_segments, width, stream)
+            rc = getattr(lib, f"segment_sum_tile_{sfx}")(
+                vals.data_ptr(), _ptr(plan.perm), plan.offsets.data_ptr(),
+                sc, plan.tiles.data_ptr(), out.data_ptr(), _n_tiles(plan),
+                width, plan.tile_entries, stream)
     _launched(f"segment_sum ({path} path)", lib, rc)
     if path == "block":
         segment_sum_block_launches += 1
     else:
-        segment_sum_launches += 1
+        segment_sum_tile_launches += 1
     key = (plan.n_entries, plan.n_segments, width, path)
     plan_launches[key] = plan_launches.get(key, 0) + 1
     return out
+
+
+def _ptr(t: Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _n_tiles(plan: SegmentPlan) -> int:
+    return int(plan.tiles.shape[0]) - 1
 
 
 def _segment_sum_raw(vals: Tensor, plan: SegmentPlan,
@@ -388,6 +454,11 @@ def coarse_pair_sum_cuda(unique: Tensor, order: Tensor, rows: Tensor,
     from cmad_tpu_torch.ops._build import load_library
 
     global coarse_pair_sum_launches
+    for name, idx in (("order", order), ("rows", rows), ("cols", cols)):
+        _check_index("coarse_pair_sum", name, idx, unique, torch.int64)
+    for name, idx in (("plan.offsets", plan.offsets),
+                      ("plan.schedule", plan.schedule)):
+        _check_index("coarse_pair_sum", name, idx, unique)
     if unique.device.type != "cuda":
         raise ValueError(f"coarse_pair_sum: the CUDA kernel takes CUDA "
                          f"tensors; got device {unique.device}")
@@ -406,10 +477,6 @@ def coarse_pair_sum_cuda(unique: Tensor, order: Tensor, rows: Tensor,
         raise ValueError(f"coarse_pair_sum: unique, order, rows, cols must "
                          f"be ({n},) over the plan's entries and P_vals a "
                          f"contiguous (n_dofs, {w}) matrix")
-    for name, idx in (("order", order), ("rows", rows), ("cols", cols),
-                      ("plan.offsets", plan.offsets),
-                      ("plan.schedule", plan.schedule)):
-        _check_index("coarse_pair_sum", name, idx, unique)
     out = unique.new_empty((plan.n_segments, w, w))
     lib = load_library()
     fn = lib.coarse_pair_sum_f64 if unique.dtype == torch.float64 \
@@ -442,55 +509,79 @@ def coarse_pair_sum(unique: Tensor, order: Tensor, rows: Tensor,
                      f"{unique.device}")
 
 
-def csr_tensor(indptr: Tensor, cols: Tensor, data: Tensor,
-               n: int) -> Tensor:
-    """The ``(n, n)`` PyTorch CSR matrix ``(indptr, cols, data)``: the
-    plain version of :func:`csr_matvec`."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # "sparse CSR support is beta"
-        return torch.sparse_csr_tensor(indptr, cols, data, (n, n),
-                                       check_invariants=False)
+@dataclass(frozen=True)
+class CsrPlan:
+    """The fixed pattern of an ``(n, n)`` CSR matrix: ``rows``, the
+    segment plan of its row pointer (its offsets are the row pointer, as
+    int32, and its tiles the kernel's), and ``cols``, each entry's column
+    as int32."""
+
+    rows: SegmentPlan
+    cols: Tensor
+    n: int
 
 
-def csr_matvec_cuda(indptr: Tensor, cols: Tensor, data: Tensor,
-                    x: Tensor) -> Tensor:
-    """``y = A x`` on the card, each row summed in column order from 0
-    by one thread (``csr_matvec``)."""
+def csr_plan(indptr, cols, device) -> CsrPlan:
+    """The :class:`CsrPlan` of the row pointer ``indptr`` and columns
+    ``cols`` (arrays or tensors), built once per pattern on the host."""
+    indptr = _host(indptr)
+    return CsrPlan(rows=plan_from_offsets(indptr, device),
+                   cols=_index32(_host(cols), device),
+                   n=int(indptr.shape[0]) - 1)
+
+
+def csr_matvec_plain(plan: CsrPlan, data: Tensor, x: Tensor) -> Tensor:
+    """The plain version of :func:`csr_matvec_cuda`: the products
+    ``data[j] * x[cols[j]]``, then ``index_add_`` over the rows; on the
+    CPU each row summed in ascending position from 0, the kernel's order,
+    so the same bits."""
+    return _segment_sum_plain(data * x[plan.cols], plan.rows, None)
+
+
+def csr_matvec_cuda(plan: CsrPlan, data: Tensor, x: Tensor) -> Tensor:
+    """``y = A x`` on the card for the matrix of ``plan`` with values
+    ``data``: the tile path (``csr_matvec``), each row summed in ascending
+    column position from 0."""
     from cmad_tpu_torch.ops._build import load_library
 
     global csr_matvec_launches
+    for name, idx in (("plan.rows.offsets", plan.rows.offsets),
+                      ("plan.rows.tiles", plan.rows.tiles),
+                      ("plan.cols", plan.cols)):
+        _check_index("csr_matvec", name, idx, x)
     if x.device.type != "cuda":
         raise ValueError(f"csr_matvec: the CUDA kernel takes CUDA tensors; "
                          f"got device {x.device}")
     _check("data", data, x)
-    n = int(indptr.shape[0]) - 1
-    if tuple(x.shape) != (n,) or not (x.is_contiguous()
-                                      and data.is_contiguous()):
+    n = plan.n
+    if tuple(x.shape) != (n,) or tuple(data.shape) != tuple(
+            plan.cols.shape) or not (x.is_contiguous()
+                                     and data.is_contiguous()):
         raise ValueError(f"csr_matvec: x must be a contiguous ({n},) "
-                         f"vector and data contiguous")
-    for name, idx in (("indptr", indptr), ("cols", cols)):
-        _check_index("csr_matvec", name, idx, x)
+                         f"vector and data contiguous, one per column")
     y = torch.empty_like(x)
     lib = load_library()
     fn = lib.csr_matvec_f64 if x.dtype == torch.float64 \
         else lib.csr_matvec_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(indptr.data_ptr(), cols.data_ptr(), data.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n, stream)
+        rc = fn(plan.rows.tiles.data_ptr(), plan.rows.offsets.data_ptr(),
+                plan.cols.data_ptr(), data.data_ptr(), x.data_ptr(),
+                y.data_ptr(), _n_tiles(plan.rows), plan.rows.tile_entries,
+                stream)
     _launched("csr_matvec", lib, rc)
     csr_matvec_launches += 1
     return y
 
 
-def make_csr_matvec(indptr: Tensor, cols: Tensor, data: Tensor, n: int):
-    """``matvec(x) = A x`` for the fixed CSR matrix ``(indptr, cols,
-    data)``: the kernel on the card, PyTorch's CSR product (built once
-    here) on the CPU. Not differentiable."""
+def make_csr_matvec(plan: CsrPlan, data: Tensor):
+    """``matvec(x) = A x`` for the fixed CSR matrix of ``plan`` with
+    values ``data``: the kernel on the card, :func:`csr_matvec_plain` on
+    the CPU; the same bits. Not differentiable."""
+    data = data.detach()
     if data.device.type == "cuda":
-        data = data.detach().contiguous()
-        return lambda x: csr_matvec_cuda(indptr, cols, data, x)
+        data = data.contiguous()
+        return lambda x: csr_matvec_cuda(plan, data, x)
     if data.device.type != "cpu":
         raise ValueError(f"csr_matvec: no kernel for device {data.device}")
-    A = csr_tensor(indptr, cols, data.detach(), n)
-    return lambda x: A @ x
+    return lambda x: csr_matvec_plain(plan, data, x)

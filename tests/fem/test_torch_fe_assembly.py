@@ -1,8 +1,9 @@
 """cmad_tpu_torch's FE assembly and linear solvers against cmad_tpu's on
 the 480-tet notch with J2, on the CPU in float64: the global residual,
 tangent and per-IP state of the J2 block in both forms and both state
-layouts, the embedded-BC pair, the two-level preconditioner's apply, and
-the CG arms against the sparse-direct solve.
+layouts, the embedded-BC pair, CG's product (in the card's row order, bit
+for bit), the two-level preconditioner's apply, and the CG arms against
+the sparse-direct solve.
 
 Assembly agrees to 1e-12 of each output's scale: the two packages sum the
 element contributions in different orders. The strains are random and
@@ -247,3 +248,33 @@ def test_two_level_cg_budget_is_split_over_cycles(case):
     jax_cg_two_level(Kd, ft.embedded_sparsity, -r, get_two_level_pattern(ft),
                      rtol=1e-14, max_iters=10, stats=stats)
     assert stats["cg_iters"] == [8]
+
+
+def test_cg_product_is_the_row_order_sum(case):
+    """CG's product on the embedded K, as the CPU runs it
+    (``csr_matvec_plain`` over the pattern's ``CsrPlan``), equals a numpy
+    loop over each row in ascending column position bit for bit, the order
+    of the card's tile kernel; its row tiles cover every row once; and it
+    agrees with cmad_tpu's product (the node-block contraction of 3 x 3
+    blocks, another summation order) to 1e-14 of max |y|."""
+    (_, Kd_j), (_, Kd) = _enforced(case)
+    sp = case["ft"].embedded_sparsity
+    tiles = sp.csr.rows.tiles.numpy().astype(np.int64)
+    assert tiles[0].tolist() == [0, 0] and tiles[-1, 0] == sp.n
+    assert np.all(np.diff(tiles[:, 0]) > 0)
+    assert np.array_equal(tiles[:, 1], sp.indptr_np[tiles[:, 0]])
+    assert np.array_equal(sp.csr.cols.numpy(), sp.col_indices_np)
+    unique, matvec = _csr_operator(Kd, sp)
+    x = np.random.default_rng(13).standard_normal(sp.n)
+    y = matvec(torch.as_tensor(x)).numpy()
+    u = unique.numpy()
+    loop = np.zeros(sp.n)
+    for r in range(sp.n):
+        acc = np.float64(0.0)
+        for j in range(sp.indptr_np[r], sp.indptr_np[r + 1]):
+            acc = acc + u[j] * x[sp.col_indices_np[j]]
+        loop[r] = acc
+    assert np.array_equal(y, loop)
+    sj = case["fj"].kernel_arrays.embedded_sparsity
+    y_j = np.asarray(_bcsr_operator(Kd_j, sj)[1](jnp.asarray(x)))
+    _close(y, y_j, rtol=1e-14, what="K x vs cmad_tpu")

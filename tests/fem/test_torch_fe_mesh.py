@@ -198,10 +198,13 @@ def test_coo_pattern_and_embedded_sparsity_match(bundles):
         for a, b in zip(eqj["block_1"], eqt["block_1"], strict=True):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     sj, st = kj.embedded_sparsity, kt.embedded_sparsity
-    for attr in ("perm", "segment_ids", "indptr", "col_indices",
-                 "diag_idx"):
+    for attr in ("perm", "segment_ids", "col_indices", "diag_idx"):
         np.testing.assert_array_equal(getattr(st, attr).numpy(),
                                       np.asarray(getattr(sj, attr)))
+    # the row pointer: the CSR plan's offsets (int32, what the card's
+    # product reads) and the host copy
+    for indptr in (st.csr.rows.offsets.numpy(), st.indptr_np):
+        np.testing.assert_array_equal(indptr, np.asarray(sj.indptr))
     # each dedup segment collects every emitted duplicate of its (row,
     # col): the pattern rebuilt from the scatter is the emitted stream
     rows = kt.coo_rows.numpy()[kt.coo_dedup_scatter.numpy()]

@@ -7,16 +7,21 @@ driver and the linear solver of the deck's at-scale records: CG with the
 two-level preconditioner, rtol 1e-6, at most 2000 iterations, the
 Eisenstat-Walker forcing term; f64) through its first
 ``--steps - 1`` steps untraced, then traces the last step and prints the
-step's wall seconds, the device time summed by kernel family (the K1
-kernel, the sparse product, gathers, scatter-adds, reductions, dense
-products, element-wise work, copies), the number of kernels launched, and the
-device's busy and idle shares of the step's wall time (the kernels run
-on one stream, so their times do not overlap). The tracer adds host
-time to every operation, so the step is also run untraced first, and
-the traced device time is given as a share of that wall time too (valid
-when both runs took the same Newton and CG path, which it reports: f64
-scatter-adds on the card round differently from run to run). Run from
-the root of a checkout on a machine with an NVIDIA GPU:
+step's wall seconds, the device time summed by kernel family (the port's
+own kernels: K1, CG's product ``csr_matvec``, the segment sums' tile
+and block paths and ``coarse_pair_sum``; then PyTorch's gathers,
+index writes, reductions, dense products, element-wise work, copies), the
+number of kernels launched, and the device's busy and idle shares of the
+step's wall time (the kernels run on one stream, so their times do not
+overlap). It also prints ``csr_matvec``'s device time per launch over the
+step's CG solves (mean, median, least and most), to set against its
+warm and cold times alone (``chip_smoke.py``): whether CG's loop reads the
+matrix from the L2 or from device memory. The tracer adds host time to
+every operation, so the step is also run untraced first, and the traced
+device time is given as a share of that wall time too (both runs take
+the same Newton and CG path, which it reports: the sums on the card are
+reproducible). Run from the root of a checkout on a machine with an
+NVIDIA GPU:
 
     python3 tools/torch_fe_profile.py --mesh notch_h0.015.exo
 """
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -32,25 +38,39 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 
-# kernel families, matched in order against the lower-cased kernel name
+# kernel families, each a regex searched in order in the lower-cased
+# kernel name (demangled, ``segment_sum_tile_kernel<double, 2, true>``,
+# or mangled, ``segment_sum_tile_kernelIdLi2ELb1E``)
+CSR_MATVEC = "csr_matvec (CG's product: segment_sum_tile's CSR instance)"
 FAMILIES = (
-    ("j2_soa_step (K1)", ("j2_soa_step",)),
-    ("sparse product (cuSPARSE)", ("csrmv", "spmv", "cusparse", "csr")),
-    ("gathers (tensor[index])", ("gather",)),
-    ("scatter-add (index_add_, index_put_)", ("index", "scatter")),
-    ("reductions (dot, norm, sum)", ("reduce", "dot", "norm")),
-    ("dense products (gemv, gemm)", ("gemv", "gemm", "gemvx", "dot_kernel")),
-    ("dense Cholesky (potrf, potrs, trsm)", ("potrf", "potrs", "trsm",
-                                            "cholesky")),
-    ("copies and fills", ("copy", "memcpy", "memset", "fill", "cat")),
-    ("element-wise", ("elementwise", "vectorized", "unrolled")),
+    ("j2_soa_step (K1)", r"j2_soa_step"),
+    # (csr_matvec_kernel: the thread-per-row kernel before the tile kernel)
+    (CSR_MATVEC,
+     r"csr_matvec_kernel|segment_sum_tile_kernel(?:<\w+, 2\b|i[df]li2e)"),
+    ("segment_sum_tile (short plans of one column)",
+     r"segment_sum_tile_kernel"),
+    # (the thread path of the builds before the tile kernel, which the
+    # kernel probe traces beside this one)
+    ("segment_sum (thread path, before the tile kernel)",
+     r"segment_sum_kernel"),
+    ("segment_sum_block (long plans: the two-level restriction)",
+     r"segment_sum_block_kernel"),
+    ("coarse_pair_sum (the two-level coarse pairs)",
+     r"coarse_pair_sum_kernel"),
+    ("gathers (tensor[index])", r"gather"),
+    ("index writes (index_put_, scatter)", r"index|scatter"),
+    ("reductions (dot, norm, sum)", r"reduce|dot|norm"),
+    ("dense products (gemv, gemm)", r"gemv|gemm"),
+    ("dense Cholesky (potrf, potrs, trsm)", r"potrf|potrs|trsm|cholesky"),
+    ("copies and fills", r"copy|memcpy|memset|fill|cat"),
+    ("element-wise", r"elementwise|vectorized|unrolled"),
 )
 
 
 def family(name: str) -> str:
     low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
+    for fam, pattern in FAMILIES:
+        if re.search(pattern, low):
             return fam
     return "other"
 
@@ -114,11 +134,15 @@ def main() -> int:
     by_family: dict[str, float] = defaultdict(float)
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
     launches = 0
+    csr_us = []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = ev.time_range.elapsed_us()   # a kernel's own duration
-        by_family[family(ev.name)] += us
+        fam = family(ev.name)
+        by_family[fam] += us
+        if fam == CSR_MATVEC:
+            csr_us.append(us)
         by_name[ev.name][0] += us
         by_name[ev.name][1] += 1
         launches += 1
@@ -140,6 +164,16 @@ def main() -> int:
           f"Newton and CG path: {same})")
     for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam}: {us * 1e-3:.2f} ms ({us * 1e-6 / wall:.1%} of wall)")
+    csr = {}
+    if csr_us:
+        ms = sorted(u * 1e-3 for u in csr_us)
+        csr = {"launches": len(ms), "mean_ms": sum(ms) / len(ms),
+               "median_ms": ms[len(ms) // 2], "min_ms": ms[0],
+               "max_ms": ms[-1]}
+        print(f"csr_matvec in the step's CG solves: {csr['launches']} "
+              f"launches, device ms per launch: mean {csr['mean_ms']:.5f}, "
+              f"median {csr['median_ms']:.5f}, least {csr['min_ms']:.5f}, "
+              f"most {csr['max_ms']:.5f}")
     print("top kernels by device time:")
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:15]:
@@ -149,7 +183,8 @@ def main() -> int:
         "untraced_wall_s": plain_wall, "same_path": same,
         "device_s": device_s, "busy": device_s / wall, "launches": launches,
         "stats": stats[0], "untraced_stats": plain_stats[0],
-        "families_ms": {f: us * 1e-3 for f, us in by_family.items()}}))
+        "families_ms": {f: us * 1e-3 for f, us in by_family.items()},
+        "csr_matvec": csr}))
     return 0
 
 

@@ -54,19 +54,30 @@ checkout's library:
 on the six segment plans of the 47,628-tet notch, built on the host by the
 port (the residual scatter, the COO dedup and rows, the CSR dedup, the
 two-level restriction and coarse pairs) and on synthetic plans of uniform
-segment length: each library's thread path (``segment_sum``) and, where
-it has one, its block path (``segment_sum_block``), beside ``index_add_``
-on the card, each output against ``index_add_`` on the CPU bit for bit;
-then the two-level ``coarse_matrix`` as a whole and its per-pair sum alone,
-as PyTorch's products plus each library's segment sum and as each
-library's fused ``coarse_pair_sum``, against ``coarse_matrix`` on the CPU.
-Device times come from a CUDA graph of 20 launches (``chip_smoke.graph_ms``),
-the libraries in turns; the notch's plans, ``csr_matvec`` (beside
-PyTorch's CSR product) and the fused coarse-pair sum are also timed cold
-(``chip_smoke.cold_ms``), as the byte bound counts their bytes. Each
-plan's row gives its byte bound and its chain floor: the longest segment
-times the latency of one dependent f64 add, which a one-thread chain
-kernel measures in the same call:
+segment length: each library's two paths (the tile path
+``segment_sum_tile``, or in a library before it the thread path
+``segment_sum``, and the block path ``segment_sum_block``; the tile path on
+the notch's plans of one column also at each ``--tile-entries`` size) beside ``index_add_`` on the
+card with an int64 and an int32 index, each output against ``index_add_``
+on the CPU bit for bit; CG's product on K's pattern, each library's
+``csr_matvec`` (each through its own C signature: ``LibSums``) beside
+PyTorch's CSR product (cuSPARSE) with int64 and int32 indices, against
+``csr_matvec_plain`` on the CPU bit for bit; then the two-level
+``coarse_matrix`` as a whole and its per-pair sum alone, as PyTorch's
+products plus each library's segment sum and as each library's fused
+``coarse_pair_sum``, against ``coarse_matrix`` on the CPU. Device times
+come from a CUDA graph of 20 launches (``chip_smoke.graph_ms``), the
+libraries in turns, best of ``--rounds`` with the spread over the rounds;
+the notch's plans, ``csr_matvec`` and the fused coarse-pair sum are also
+timed cold (``chip_smoke.cold_ms``), as the byte bound counts their
+bytes. Each row gives its byte bound with 4-byte indices and offsets (the
+bound) and with 8-byte ones (the count before the tile kernel), and its
+chain floor: the longest segment times the latency of one dependent f64
+add, which a one-thread chain kernel measures in the same call. Last
+(unless ``--no-drive``), the 47,628-tet notch is driven and its gradient
+taken once per library, each library's sums in the whole path, the
+libraries in turns: the U history, J and dJ/dc and the Newton and CG
+counts must be bit-identical across them:
 
     python3 tools/torch_kernel_probe.py --segsum \
         --src parent=build/parent/cmad_tpu_torch/csrc --src change=cmad_tpu_torch/csrc
@@ -146,7 +157,8 @@ def sass_counts(insns) -> dict:
 _BLOCK_CONST = {"j2_soa_step": ("kStepThreads", "kThreads"),
                 "j2_total_step": ("kTotalTile",),
                 "j2_soa_history": ("kHistThreads",),
-                "j2_aos_step": ("kAosTile",)}
+                "j2_aos_step": ("kAosTile",),
+                "segment_sum_tile": ("kTileThreads",)}
 
 
 def _block_sizes(csrc: Path) -> dict[str, int]:
@@ -213,9 +225,14 @@ def load(path: Path) -> ctypes.CDLL:
             "j2_aos_step": [ptr] * 6 + [i64, ptr],
             "j2_total_step": [ptr] * 5 + [i64, ptr],
             "segment_sum": [ptr] * 5 + [i64, i64, ptr],
+            "segment_sum_tile": [ptr] * 6 + [i64, i64, i64, ptr],
             "segment_sum_block": [ptr] * 6 + [i64, i64, ptr],
-            "coarse_pair_sum": [ptr] * 8 + [i64, i64, ptr],
-            "csr_matvec": [ptr] * 5 + [i64, ptr]}
+            "coarse_pair_sum": [ptr] * 8 + [i64, i64, ptr]}
+    # csr_matvec's entry took int64 indices and a thread per row before the
+    # tile kernel, the tile path's arguments since (LibSums)
+    sigs["csr_matvec"] = ([ptr] * 6 + [i64, i64, ptr]
+                          if hasattr(lib, "segment_sum_tile_f64")
+                          else [ptr] * 5 + [i64, ptr])
     for base, args in sigs.items():
         for sfx in ("f32", "f64"):
             # a parent's library may lack the newer entries
@@ -296,23 +313,140 @@ def dadd_latency(out: Path) -> dict:
     return {"ns_per_add": best_ns, "cycles_per_add": best_cyc}
 
 
-def _in_turns(args, calls: dict, time_one) -> dict:
+def _in_turns(args, calls: dict, time_one, spread=None) -> dict:
     """ms per call of each ``calls[name]``, best of ``--rounds`` timings
-    ``time_one(calls[name])``, the names in turns (A B .. B A)."""
-    best = {nm: math.inf for nm in calls}
+    ``time_one(calls[name])``, the names in turns (A B .. B A); the spread
+    over the rounds (most less least, ms) into ``spread`` if given."""
+    times: dict = {nm: [] for nm in calls}
     names = list(calls)
     for r in range(args.rounds):
         for nm in (names if r % 2 == 0 else names[::-1]):
-            best[nm] = min(best[nm], time_one(calls[nm]))
-    return best
+            times[nm].append(time_one(calls[nm]))
+    if spread is not None:
+        spread.update({nm: max(t) - min(t) for nm, t in times.items()})
+    return {nm: min(t) for nm, t in times.items()}
+
+
+def _check_rc(rc) -> None:
+    if rc != 0:
+        raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class LibSums:
+    """One library's f64 segment sums and CSR product, each through that
+    library's own C signature. A library with the tile path
+    (``segment_sum_tile_f64``) has it and the block path, both reading the
+    plan's int32 arrays, and takes ``csr_matvec_f64(tiles, indptr, cols,
+    data, x, y, n_tiles, tile_entries, stream)`` with int32 indices. One
+    without (before the tile kernel) has the thread path
+    (``segment_sum_f64``) and the block path, both reading int64 copies of
+    the plan's offsets, perm and schedule (:meth:`plan_for`), and takes
+    ``csr_matvec_f64(indptr, cols, data, x, y, n, stream)`` with int64
+    indices, a thread per row."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.tile = getattr(lib, "segment_sum_tile_f64", None) is not None
+        self.short = "tile" if self.tile else "thread"
+        self.paths = [self.short, "block"]
+        self._wide: dict = {}
+
+    def plan_for(self, plan):
+        """``plan`` with the index type this library reads: itself, or
+        int64 copies of its offsets, perm and schedule, made at the first
+        call for each plan (the timings' warm-up) and kept."""
+        import dataclasses
+
+        if self.tile:
+            return plan
+        if id(plan) not in self._wide:
+            self._wide[id(plan)] = (plan, dataclasses.replace(
+                plan, offsets=plan.offsets.long(),
+                perm=None if plan.perm is None else plan.perm.long(),
+                schedule=plan.schedule.long()))
+        return self._wide[id(plan)][1]
+
+    def segment_sum(self, path, vals, plan, scale=None):
+        import numpy as np
+        import torch
+
+        w = int(np.prod(vals.shape[1:], dtype=np.int64))
+        out = vals.new_empty((plan.n_segments, *vals.shape[1:]))
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        pl = self.plan_for(plan)
+        if path == "block":
+            rc = self.lib.segment_sum_block_f64(
+                vals.data_ptr(), _ptr(pl.perm), pl.offsets.data_ptr(),
+                _ptr(scale), pl.schedule.data_ptr(), out.data_ptr(),
+                pl.n_segments, w, stream)
+        elif path == "tile":
+            rc = self.lib.segment_sum_tile_f64(
+                vals.data_ptr(), _ptr(pl.perm), pl.offsets.data_ptr(),
+                _ptr(scale), pl.tiles.data_ptr(), out.data_ptr(),
+                int(pl.tiles.shape[0]) - 1, w, pl.tile_entries, stream)
+        else:
+            rc = self.lib.segment_sum_f64(
+                vals.data_ptr(), _ptr(pl.perm), pl.offsets.data_ptr(),
+                _ptr(scale), out.data_ptr(), pl.n_segments, w, stream)
+        _check_rc(rc)
+        return out
+
+    def csr_matvec(self, plan, cols64, data, x):
+        """``plan`` a :class:`~cmad_tpu_torch.ops.segment_sum.CsrPlan`;
+        ``cols64`` its columns as int64, which a library before the tile
+        kernel reads."""
+        import torch
+
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rows = self.plan_for(plan.rows)
+        if self.tile:
+            rc = self.lib.csr_matvec_f64(
+                rows.tiles.data_ptr(), rows.offsets.data_ptr(),
+                plan.cols.data_ptr(), data.data_ptr(), x.data_ptr(),
+                y.data_ptr(), int(rows.tiles.shape[0]) - 1,
+                rows.tile_entries, stream)
+        else:
+            rc = self.lib.csr_matvec_f64(
+                rows.offsets.data_ptr(), cols64.data_ptr(),
+                data.data_ptr(), x.data_ptr(), y.data_ptr(), plan.n, stream)
+        _check_rc(rc)
+        return y
+
+
+def with_tiles(plan, tile_entries: int):
+    """``plan`` cut into tiles of at most ``tile_entries`` entries."""
+    import dataclasses
+
+    from cmad_tpu_torch.ops import segment_sum as ss
+
+    tiles = ss._index32(ss.tile_plan(plan.offsets.cpu().numpy(),
+                                     tile_entries), plan.tiles.device)
+    return dataclasses.replace(plan, tiles=tiles, tile_entries=tile_entries)
 
 
 def segsum(args, libs: dict, report: dict, out: Path) -> None:
     """The --segsum mode: the module docstring says what it times."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from chip_smoke import FE_MESH, FE_RECORDS, cold_ms, graph_ms, notch_deck
+    from chip_smoke import (
+        FE_MESH,
+        FE_RECORDS,
+        HBM_BYTES_PER_S,
+        cold_ms,
+        csr_bytes,
+        csr_tensor,
+        graph_ms,
+        notch_deck,
+        segsum_bytes,
+    )
     from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
     from cmad_tpu_torch.fem.nonlinear_solver import get_two_level_pattern
     from cmad_tpu_torch.ops import segment_sum as ss
@@ -321,27 +455,27 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(0)
     f64 = torch.float64
-
-    def stream():
-        # the current stream at each launch: graph_ms captures on its own
-        return torch.cuda.current_stream(dev).cuda_stream
+    sums = {nm: LibSums(lib) for nm, lib in libs.items()}
+    tile_sizes = [int(e) for e in args.tile_entries.split(",") if e]
 
     chain = dadd_latency(out)
     print(json.dumps({"dadd_chain": chain}), flush=True)
     report["dadd_chain"] = chain
 
-    def check(rc):
-        if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    def in_turns(calls: dict, spread=None) -> dict:
+        return _in_turns(args, calls, lambda fn: graph_ms(fn, sync), spread)
 
-    def in_turns(calls: dict) -> dict:
-        return _in_turns(args, calls, lambda fn: graph_ms(fn, sync))
-
-    def cold_in_turns(calls: dict) -> dict:
+    def cold_in_turns(calls: dict, spread=None) -> dict:
+        """``calls[name]`` = (fn, args, bytes a call reads)."""
         return _in_turns(args, calls,
-                         lambda fa: cold_ms(fa[0], fa[1], sync))
+                         lambda fa: cold_ms(fa[0], fa[1], sync, fa[2]),
+                         spread)
 
-    def plan_row(label, plan, width, scale_too=False, cold=False):
+    def bound_ms(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    def plan_row(label, plan, width, scale_too=False, cold=False,
+                 sweep=False):
         w = int(np.prod(width, dtype=np.int64))
         vals = torch.randn((plan.n_entries, *width), generator=gen,
                            device=dev, dtype=f64)
@@ -353,77 +487,65 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
             idx, src = plan.target, vals
         if scale is not None:
             src = src * scale.reshape(-1, *([1] * len(width)))
+        idx32 = idx.to(torch.int32)
         ref = torch.zeros((plan.n_segments, *width), dtype=f64).index_add_(
             0, idx.cpu(), src.cpu())
-        perm = None if plan.perm is None else plan.perm.data_ptr()
-        sc = None if scale is None else scale.data_ptr()
-        calls, outs = {}, {}
-        for nm, lib in libs.items():
-            o = torch.empty((plan.n_segments, *width), dtype=f64, device=dev)
-            calls[f"{nm}/thread"] = (lambda lib=lib, o=o: check(
-                lib.segment_sum_f64(vals.data_ptr(), perm,
-                                    plan.offsets.data_ptr(), sc,
-                                    o.data_ptr(), plan.n_segments, w,
-                                    stream())))
-            outs[f"{nm}/thread"] = o
-            if getattr(lib, "segment_sum_block_f64", None) is not None \
-                    and w <= ss.BLOCK_MAX_WIDTH:
-                ob = torch.empty_like(o)
-                calls[f"{nm}/block"] = (lambda lib=lib, ob=ob: check(
-                    lib.segment_sum_block_f64(
-                        vals.data_ptr(), perm, plan.offsets.data_ptr(), sc,
-                        plan.schedule.data_ptr(), ob.data_ptr(),
-                        plan.n_segments, w, stream())))
-                outs[f"{nm}/block"] = ob
+        # name -> (library's sums, path, plan)
+        runs = {}
+        for nm, sm in sums.items():
+            for path in sm.paths:
+                if path != "block" or w <= ss.BLOCK_MAX_WIDTH:
+                    runs[f"{nm}/{path}"] = (sm, path, plan)
+            if sweep and sm.tile:
+                for e in tile_sizes:
+                    if e != plan.tile_entries:
+                        runs[f"{nm}/tile E={e}"] = (sm, "tile",
+                                                    with_tiles(plan, e))
+        calls = {nm: (lambda sm=sm, path=path, pl=pl: sm.segment_sum(
+            path, vals, pl, scale)) for nm, (sm, path, pl) in runs.items()}
+        equal = {nm: bool(torch.equal(fn().cpu(), ref))
+                 for nm, fn in calls.items()}
         calls["index_add_"] = (lambda: vals.new_zeros(
             (plan.n_segments, *width)).index_add_(0, idx, src))
-        for fn in calls.values():
-            fn()
+        calls["index_add_ int32"] = (lambda: vals.new_zeros(
+            (plan.n_segments, *width)).index_add_(0, idx32, src))
         sync()
-        equal = {nm: bool(torch.equal(o.cpu(), ref)) for nm, o in outs.items()}
-        ms = in_turns(calls)
+        spread: dict = {}
+        ms = in_turns(calls, spread)
         summed = int(plan.sorted_target.shape[0])
-        nbytes = 8 * (summed * (w + (plan.perm is not None)
-                                + (scale is not None))
-                      + plan.n_segments * (w + 1) + 1)
+        shape = (summed, w, plan.n_segments, plan.perm is not None,
+                 scale is not None)
         row = {"case": label, "entries": plan.n_entries, "summed": summed,
                "width": w, "segments": plan.n_segments,
                "longest": plan.max_length,
+               "tiles": int(plan.tiles.shape[0]) - 1,
                "path": ss.segment_path(plan, w), "ms": ms,
+               "spread": spread,
                "bit_identical_to_cpu_index_add": equal,
-               "byte_bound_ms": nbytes / 3.35e12 * 1e3,
+               "byte_bound_ms": bound_ms(segsum_bytes(*shape)),
+               "byte_bound_ms_int64": bound_ms(segsum_bytes(
+                   *shape, index_bytes=8)),
                "chain_floor_ms": plan.max_length * chain["ns_per_add"] * 1e-6}
         if cold:
             # the same calls with every input read from device memory:
-            # copies of vals, the plan's index arrays and the scale
-            def launch(lib, path, vals_, perm_, offsets_, scale_, sched_):
-                o = torch.empty((plan.n_segments, *width), dtype=f64,
-                                device=dev)
-                ptr = [None if t is None else t.data_ptr()
-                       for t in (perm_, scale_)]
-                if path == "thread":
-                    check(lib.segment_sum_f64(
-                        vals_.data_ptr(), ptr[0], offsets_.data_ptr(),
-                        ptr[1], o.data_ptr(), plan.n_segments, w, stream()))
-                else:
-                    check(lib.segment_sum_block_f64(
-                        vals_.data_ptr(), ptr[0], offsets_.data_ptr(),
-                        ptr[1], sched_.data_ptr(), o.data_ptr(),
-                        plan.n_segments, w, stream()))
-                return o
-
-            inputs = (vals, plan.perm, plan.offsets, scale, plan.schedule)
+            # copies of vals, the plan and the scale, as many as push the
+            # bytes the bound counts out of the L2
+            read = segsum_bytes(*shape)
             cold_calls = {
-                nm: (lambda *a, lib=libs[nm.split("/")[0]],
-                     path=nm.split("/")[1]: launch(lib, path, *a), inputs)
-                for nm in calls if nm != "index_add_"}
+                nm: (lambda v, pl, sc, sm=sm, path=path: sm.segment_sum(
+                    path, v, pl, sc), (vals, pl, scale), read)
+                for nm, (sm, path, pl) in runs.items()}
             cold_calls["index_add_"] = (
                 lambda i, v: v.new_zeros((plan.n_segments, *width))
-                .index_add_(0, i, v), (idx, src))
-            row["ms_cold"] = cold_in_turns(cold_calls)
+                .index_add_(0, i, v), (idx, src), read)
+            cold_calls["index_add_ int32"] = (
+                cold_calls["index_add_"][0], (idx32, src), read)
+            row["spread_cold"] = {}
+            row["ms_cold"] = cold_in_turns(cold_calls, row["spread_cold"])
             row["byte_bound_share_of_cold"] = {
                 nm: row["byte_bound_ms"] / t
-                for nm, t in row["ms_cold"].items() if nm != "index_add_"}
+                for nm, t in row["ms_cold"].items()
+                if not nm.startswith("index_add_")}
         print(json.dumps(row), flush=True)
         report.setdefault("segsum", []).append(row)
         return row
@@ -441,7 +563,8 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
              "coarse pairs": (two["pair_plan"], (6, 6))}
     for label, (plan, width) in plans.items():
         plan_row(label, plan, width,
-                 scale_too=label == "two-level restriction", cold=True)
+                 scale_too=label == "two-level restriction", cold=True,
+                 sweep=not width)
         torch.cuda.empty_cache()
     for n_seg, length, w in SYNTH_PLANS:
         plan = ss.plan_from_offsets(np.arange(n_seg + 1) * length, dev)
@@ -449,39 +572,62 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
                  (w,) if w > 1 else ())
 
     # CG's product on K's pattern (29,040 rows) with random values: each
-    # library's csr_matvec beside PyTorch's CSR product (cuSPARSE), warm
-    # and cold
+    # library's csr_matvec beside PyTorch's CSR product (cuSPARSE) with
+    # int64 and with int32 indices, warm and cold, each against
+    # csr_matvec_plain on the CPU
     sp = fe.embedded_sparsity
+    cplan = sp.csr
+    cols64 = cplan.cols.long()
     data = torch.randn(sp.num_unique, generator=gen, device=dev, dtype=f64)
     xv = torch.randn(sp.n, generator=gen, device=dev, dtype=f64)
-
-    def matvec(lib, ip, ci, d, x_):
-        y = torch.empty_like(x_)
-        check(lib.csr_matvec_f64(ip.data_ptr(), ci.data_ptr(), d.data_ptr(),
-                                 x_.data_ptr(), y.data_ptr(), sp.n,
-                                 stream()))
-        return y
+    plain = ss.csr_matvec_plain(ss.csr_plan(sp.indptr_np, sp.col_indices_np,
+                                            "cpu"), data.cpu(), xv.cpu())
 
     def cusparse(ip, ci, d, x_):
-        return ss.csr_tensor(ip, ci, d, sp.n) @ x_
+        return csr_tensor(ip, ci, d, sp.n) @ x_
 
-    mv_args = (sp.indptr, sp.col_indices, data, xv)
-    mv = {nm: (lambda *a, lib=lib: matvec(lib, *a))
-          for nm, lib in libs.items()}
-    mv["cuSPARSE"] = cusparse
-    mv_ref = cusparse(*mv_args)
-    mv_err = {nm: float((fn(*mv_args) - mv_ref).abs().max())
-              for nm, fn in mv.items()}
-    mv_bytes = 8 * (2 * sp.num_unique + 3 * sp.n + 1)
+    read = csr_bytes(sp.num_unique, sp.n)
+    mv = {}
+    for nm, sm in sums.items():
+        mv[f"{nm}/{sm.short}"] = (
+            lambda pl, c64, d, x_, sm=sm: sm.csr_matvec(pl, c64, d, x_),
+            (cplan, cols64, data, xv), read)
+        if sm.tile:
+            for e in tile_sizes:
+                if e != cplan.rows.tile_entries:
+                    pl_e = dataclasses.replace(
+                        cplan, rows=with_tiles(cplan.rows, e))
+                    mv[f"{nm}/tile E={e}"] = (mv[f"{nm}/{sm.short}"][0],
+                                              (pl_e, cols64, data, xv), read)
+    mv["cuSPARSE"] = (cusparse, (cplan.rows.offsets.long(), cols64, data,
+                                 xv), read)
+    mv["cuSPARSE int32"] = (cusparse, (cplan.rows.offsets, cplan.cols,
+                                       data, xv), read)
+    mv_out = {nm: fn(*a) for nm, (fn, a, _r) in mv.items()}
+    mv_err = {nm: float((y.cpu() - plain).abs().max())
+              for nm, y in mv_out.items()}
+    mv_equal = {nm: bool(torch.equal(y.cpu(), plain))
+                for nm, y in mv_out.items() if not nm.startswith("cuSPARSE")}
+    spread: dict = {}
+    spread_cold: dict = {}
     row = {"case": "csr_matvec", "rows": sp.n, "nonzeros": sp.num_unique,
-           "ms": in_turns({nm: (lambda fn=fn: fn(*mv_args))
-                           for nm, fn in mv.items()}),
-           "ms_cold": cold_in_turns({nm: (fn, mv_args)
-                                     for nm, fn in mv.items()}),
-           "max_abs_diff_to_cusparse": mv_err,
-           "byte_bound_ms": mv_bytes / 3.35e12 * 1e3}
+           "tiles": int(cplan.rows.tiles.shape[0]) - 1,
+           "ms": in_turns({nm: (lambda fn=fn, a=a: fn(*a))
+                           for nm, (fn, a, _r) in mv.items()}, spread),
+           "ms_cold": cold_in_turns(mv, spread_cold),
+           "spread": spread, "spread_cold": spread_cold,
+           "bit_identical_to_cpu_plain": mv_equal,
+           "max_abs_diff_to_cpu_plain": mv_err,
+           "byte_bound_ms": bound_ms(csr_bytes(sp.num_unique, sp.n)),
+           "byte_bound_ms_int64": bound_ms(csr_bytes(sp.num_unique, sp.n,
+                                                     index_bytes=8))}
+    row["byte_bound_share_of_cold"] = {
+        nm: row["byte_bound_ms"] / t for nm, t in row["ms_cold"].items()}
     print(json.dumps(row), flush=True)
     report.setdefault("segsum", []).append(row)
+    if not all(mv_equal.values()):
+        raise RuntimeError(f"segsum: csr_matvec differs from "
+                           f"csr_matvec_plain on the CPU: {mv_equal}")
 
     # coarse_matrix as a whole, and its per-pair sum alone, on K's pattern
     # with random values: PyTorch's products + each library's segment sum
@@ -508,66 +654,52 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
                         sp.col_indices.cpu())
     whole, alone = {}, {}
     block = products()
-    for nm, lib in libs.items():
-        def composed(lib=lib, path="thread"):
-            b = products()
-            S = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
-            if path == "thread":
-                check(lib.segment_sum_f64(b.data_ptr(), None,
-                                          plan.offsets.data_ptr(), None,
-                                          S.data_ptr(), plan.n_segments,
-                                          w * w, stream()))
-            else:
-                check(lib.segment_sum_block_f64(
-                    b.data_ptr(), None, plan.offsets.data_ptr(), None,
-                    plan.schedule.data_ptr(), S.data_ptr(), plan.n_segments,
-                    w * w, stream()))
-            return place(S)
-
-        whole[f"{nm}/products+thread"] = composed
-        if getattr(lib, "segment_sum_block_f64", None) is not None:
-            whole[f"{nm}/products+block"] = (
-                lambda composed=composed: composed(path="block"))
-        if getattr(lib, "coarse_pair_sum_f64", None) is not None:
+    for nm, sm in sums.items():
+        for path in sm.paths:
+            whole[f"{nm}/products+{path}"] = (
+                lambda sm=sm, path=path: place(sm.segment_sum(
+                    path, products(), plan)))
+        if getattr(sm.lib, "coarse_pair_sum_f64", None) is not None:
             S_f = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
 
-            def fused_sum(lib=lib, S_f=S_f):
-                check(lib.coarse_pair_sum_f64(
+            def fused_sum(lib=sm.lib, S_f=S_f, pl=sm.plan_for(plan)):
+                _check_rc(lib.coarse_pair_sum_f64(
                     unique.data_ptr(), order.data_ptr(), sp.rows.data_ptr(),
                     sp.col_indices.data_ptr(), P.data_ptr(),
-                    plan.offsets.data_ptr(), plan.schedule.data_ptr(),
-                    S_f.data_ptr(), plan.n_segments, w, stream()))
+                    pl.offsets.data_ptr(), pl.schedule.data_ptr(),
+                    S_f.data_ptr(), plan.n_segments, w,
+                    torch.cuda.current_stream(dev).cuda_stream))
                 return S_f
 
             whole[f"{nm}/fused"] = (lambda fused_sum=fused_sum:
                                     place(fused_sum()))
             alone[f"{nm}/fused sum"] = fused_sum
-        S_t = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
-        alone[f"{nm}/thread sum"] = (lambda lib=lib, S_t=S_t: check(
-            lib.segment_sum_f64(block.data_ptr(), None,
-                                plan.offsets.data_ptr(), None, S_t.data_ptr(),
-                                plan.n_segments, w * w, stream())))
+        alone[f"{nm}/{sm.short} sum"] = (
+            lambda sm=sm: sm.segment_sum(sm.short, block, plan))
     alone["index_add_ sum"] = (lambda: block.new_zeros(
         (plan.n_segments, w, w)).index_add_(0, plan.sorted_target, block))
     equal = {nm: bool(torch.equal(fn().cpu(), ref))
              for nm, fn in whole.items()}
     sync()
-    pair_bytes = 8 * (4 * nnz + P.numel() + 2 * plan.n_segments + 1
-                      + w * w * plan.n_segments)
+    pair_bytes = (8 * (4 * nnz + P.numel() + w * w * plan.n_segments)
+                  + 4 * (2 * plan.n_segments + 1))
     # the fused sum with its inputs read from device memory
+
     def fused_cold(lib, *a):
         S_c = torch.empty((plan.n_segments, w, w), dtype=f64, device=dev)
-        check(lib.coarse_pair_sum_f64(*(t.data_ptr() for t in a),
-                                      S_c.data_ptr(), plan.n_segments, w,
-                                      stream()))
+        _check_rc(lib.coarse_pair_sum_f64(
+            *(t.data_ptr() for t in a), S_c.data_ptr(), plan.n_segments, w,
+            torch.cuda.current_stream(dev).cuda_stream))
         return S_c
 
-    fused_inputs = (unique, order, sp.rows, sp.col_indices, P, plan.offsets,
-                    plan.schedule)
-    cold_alone = {f"{nm}/fused sum": (lambda *a, lib=lib: fused_cold(lib, *a),
-                                      fused_inputs)
-                  for nm, lib in libs.items()
-                  if getattr(lib, "coarse_pair_sum_f64", None) is not None}
+    cold_alone = {}
+    for nm, sm in sums.items():
+        if getattr(sm.lib, "coarse_pair_sum_f64", None) is not None:
+            pl = sm.plan_for(plan)
+            cold_alone[f"{nm}/fused sum"] = (
+                lambda *a, lib=sm.lib: fused_cold(lib, *a),
+                (unique, order, sp.rows, sp.col_indices, P, pl.offsets,
+                 pl.schedule), None)
     row = {"case": "coarse_matrix", "entries": nnz,
            "pairs": plan.n_segments, "longest": plan.max_length,
            "whole_ms": in_turns(whole), "sum_alone_ms": in_turns(alone),
@@ -578,6 +710,8 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
            "chain_floor_ms": plan.max_length * chain["ns_per_add"] * 1e-6}
     print(json.dumps(row), flush=True)
     report.setdefault("segsum", []).append(row)
+    del block, fe, ka, two
+    torch.cuda.empty_cache()
     bad = [r["case"] for r in report["segsum"]
            if not all(r.get("bit_identical_to_cpu_index_add",
                             r.get("bit_identical_to_cpu_coarse_matrix",
@@ -586,6 +720,151 @@ def segsum(args, libs: dict, report: dict, out: Path) -> None:
           f"{'yes' if not bad else 'no: ' + str(bad)}", flush=True)
     if bad:
         raise RuntimeError(f"segsum: outputs differ from the CPU: {bad}")
+    if not args.no_drive:
+        notch_drives(sums, report, out)
+
+
+def notch_drives(sums: dict, report: dict, out: Path) -> None:
+    """The 47,628-tet notch of ``chip_smoke.py`` (4 steps, the records'
+    solver) driven, and its gradient taken (``chip_smoke``'s fe-grad: J
+    and dJ/dc at Y = 2.6 against the first drive's U), with each library's
+    segment sums and CSR products (their own entries; K1 and the rest of
+    the path this checkout's), the libraries in turns (A B .. B A, twice)
+    after one drive and one gradient of warm-up: per run the Newton and CG
+    iterations, the wall time, and the U history or J and dJ/dc, which
+    must be bit-identical across the libraries."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (
+        FE_MESH,
+        FE_RECORDS,
+        grad_deck,
+        notch_deck,
+        save_displacements,
+    )
+    from cmad_tpu_torch.cli.fe_common import (
+        build_fe_problem_from_deck,
+        build_fe_stepped_vg,
+        run_primal_fe,
+    )
+    from cmad_tpu_torch.ops import segment_sum as ss
+
+    own = (ss.segment_sum_cuda, ss.csr_matvec_cuda)
+
+    def through(sm):
+        """The wrappers' entries, launching ``sm``'s library."""
+        cols64: dict = {}
+
+        def seg(vals, plan, scale=None, path=None):
+            w = int(np.prod(vals.shape[1:], dtype=np.int64))
+            path = ss.segment_path(plan, w) if path is None else path
+            return sm.segment_sum(path if path in sm.paths else "thread",
+                                  vals, plan, scale)
+
+        def csr(plan, data, x):
+            if id(plan) not in cols64:
+                cols64[id(plan)] = plan.cols.long()
+            return sm.csr_matvec(plan, cols64[id(plan)], data, x)
+
+        return seg, csr
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    names = list(sums)
+    order = [names[0]] + (names + names[::-1]) * 2   # a warm-up first
+    bundle = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS))
+    drives: dict = {nm: [] for nm in names}
+    grads: dict = {nm: [] for nm in names}
+    truth = None
+    for phase in ("drive", "gradient"):
+        if phase == "gradient":
+            truth = save_displacements(truth, out / "u_truth_47628.npy")
+            gbundle = build_fe_problem_from_deck(grad_deck(
+                FE_MESH, FE_RECORDS, truth))
+            p0, s0, ts, vg = build_fe_stepped_vg(gbundle)
+        for k, nm in enumerate(order):
+            ss.segment_sum_cuda, ss.csr_matvec_cuda = through(sums[nm])
+            try:
+                if phase == "drive":
+                    stats: list = []
+                    (state, _log), wall = timed(
+                        lambda stats=stats: run_primal_fe(bundle, stats))
+                    truth = state if truth is None else truth
+                    rec = {"U": np.stack(state.U_history), "wall_s": wall,
+                           "newton_iters": [s["newton_iters"]
+                                            for s in stats],
+                           "cg_iters": [sum(s.get("cg_iters", []))
+                                        for s in stats]}
+                else:
+                    gstats: dict = {}
+                    (J, g), wall = timed(lambda gstats=gstats: vg(
+                        p0, s0, ts, stats=gstats))
+                    rec = {"J": J, "dJ_dc": float(g[0]), "wall_s": wall,
+                           "newton_iters": [f["newton_iters"]
+                                            for f in gstats["forward"]],
+                           "cg_iters": [sum(f.get("cg_iters", []))
+                                        for f in gstats["forward"]]
+                           + [sum(r["cg_iters"])
+                              for r in gstats["reverse"]]}
+            finally:
+                ss.segment_sum_cuda, ss.csr_matvec_cuda = own
+            if k == 0:
+                continue                         # the warm-up
+            (drives if phase == "drive" else grads)[nm].append(rec)
+            print(json.dumps({f"notch_{phase}": nm, **{
+                key: v for key, v in rec.items() if key != "U"}}),
+                flush=True)
+    # one gradient more per library under torch.profiler: the device time
+    # of an evaluation, summed by kernel family (tools/torch_fe_profile.py)
+    from torch.profiler import ProfilerActivity, profile
+    from torch_fe_profile import family
+
+    traced = {}
+    for nm in names:
+        ss.segment_sum_cuda, ss.csr_matvec_cuda = through(sums[nm])
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                vg(p0, s0, ts)
+                torch.cuda.synchronize()
+        finally:
+            ss.segment_sum_cuda, ss.csr_matvec_cuda = own
+        fams: dict = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                fam = family(ev.name)
+                fams[fam] = fams.get(fam, 0.0) + ev.time_range.elapsed_us()
+        traced[nm] = {"device_ms": sum(fams.values()) * 1e-3,
+                      "families_ms": {f: us * 1e-3 for f, us in
+                                      sorted(fams.items(),
+                                             key=lambda kv: -kv[1])}}
+        print(json.dumps({"notch_gradient_traced": nm, **traced[nm]}),
+              flush=True)
+    report["notch_gradient_traced"] = traced
+    del bundle, gbundle, vg
+    torch.cuda.empty_cache()
+    first = drives[names[0]][0]
+    g_first = grads[names[0]][0]
+    same = {nm: all(np.array_equal(d["U"], first["U"])
+                    and d["newton_iters"] == first["newton_iters"]
+                    and d["cg_iters"] == first["cg_iters"]
+                    for d in drives[nm])
+            and all(g["J"] == g_first["J"] and g["dJ_dc"] == g_first["dJ_dc"]
+                    and g["cg_iters"] == g_first["cg_iters"]
+                    for g in grads[nm])
+            for nm in names}
+    print(json.dumps({"notch_bit_identical": same}), flush=True)
+    report["notch_drives"] = {nm: [{k: v for k, v in d.items() if k != "U"}
+                                   for d in drives[nm]] for nm in names}
+    report["notch_gradients"] = grads
+    report["notch_bit_identical"] = same
+    if not all(same.values()):
+        raise RuntimeError(f"segsum: the notch runs differ: {same}")
 
 
 # --------------------------------------------------------------------------
@@ -971,6 +1250,12 @@ def main() -> int:
                     help="time the reproducible sums on the notch's plans "
                          "(segment_sum, segment_sum_block, coarse_pair_sum) "
                          "instead of the J2 kernels")
+    ap.add_argument("--tile-entries", default="1024,4096",
+                    help="with --segsum: tile sizes timed beside the "
+                         "plans' own on the notch's width-1 plans and CG's "
+                         "product (comma-separated)")
+    ap.add_argument("--no-drive", action="store_true",
+                    help="with --segsum: skip the notch drives")
     ap.add_argument("--roofline", action="store_true",
                     help="run the roofline sweeps (ops/roofline.py) on "
                          "this checkout's library and exit")
