@@ -32,7 +32,7 @@ the built library's SASS counts them). The paths driven:
 - the FE J2 primal on the notch (``examples/notch_hosford.yaml`` with J2,
   the stepped driver, CG with the two-level preconditioner), built from
   the deck as a dict by ``cli/fe_common.build_fe_problem_from_deck`` and
-  driven by ``run_primal_fe``, 4 steps, f64: on 480 tets at a fixed CG
+  driven by ``fe_primal_drive``, 4 steps, f64: on 480 tets at a fixed CG
   rtol of 1e-10 against the same drive on the CPU (plain step,
   sparse-direct solves); on 47,628 tets with the linear solver of the
   deck's at-scale records (rtol 1e-6, at most 2000 iterations, the
@@ -64,6 +64,22 @@ the built library's SASS counts them). The paths driven:
   on the card; on 47,628 tets with the records' solver against
   cmad_tpu's CPU f64 numbers, twice, bit for bit, with the forward and
   reverse sweeps' time split and the segment sums' launches per plan;
+- the FE second derivatives (``benchmarks/notch_hosford/
+  hessian_scale.py``: d2J/dY2 at Y = 2.3, Y active with no transform): on
+  480 tets at a Newton tolerance of 1e-12, the card's stepped Hessian (CG
+  at 1e-10) against the CPU's (plain step, direct), the card's scan
+  Hessian (the trajectory's double backward), a central difference of the
+  card's gradient and ``J_dot`` against ``grad . v``; on 47,628 tets with
+  the records' solver, the truth through the ``primal`` command (Exodus
+  out, read back by ``read_results``) and the ``hessian`` command twice,
+  bit for bit, against cmad_tpu's CPU f64 Hessian and a central
+  difference of the card's gradient, with the sweeps' time split, the
+  Newton and CG counts and each kernel's launches in one evaluation;
+- the FE commands (``cli/fe_subcommands.py``) at 480 tets with the deck
+  as a dict: ``primal`` (Exodus and a restart written, the restart
+  resumed), ``objective``, ``gradient`` and ``hessian`` through both
+  drivers and ``calibrate`` from Y = 2.6, each file against the library
+  call's number bit for bit;
 - the roofline experiment (``ops/roofline.py``): the f32 history at
   2,097,152 points x 16 steps, Newton iterations 1-12 at 8 steps a
   launch and 1-16 steps a launch at 8 iterations, each row against the
@@ -297,6 +313,37 @@ FE_GRAD_REF_DJ_DC = 8.14695779185205
 # magnitude for J and three for the gradient, whose transpose solve's
 # 1e-6 error enters it directly
 FE_GRAD_J_RTOL, FE_GRAD_G_RTOL = 1e-5, 1e-3
+# the Hessian of the notch calibration (benchmarks/notch_hosford/
+# hessian_scale.py): the same truth, then d2J/dY2 at Y = 2.3, Y active with
+# no transform, fe_displacement_match at the records' weight, the stepped
+# driver
+HESS_Y = 2.3
+# cmad_tpu on the CPU in f64 with sparse-direct solves, Newton cap 50
+# (tools/fe_notch_reference.py --mesh notch_h0.015.exo --max-iters 50
+# --hessian, jax 0.9.0; the Hessian took 483 s on the CPU host): H, and J
+# and dJ/dY from its stepped gradient
+FE_HESS_REF_H = 5.43592770340472
+FE_HESS_REF_J = 0.2604293207775305
+FE_HESS_REF_DJ_DY = 1.7095399560198516
+# the TPU record (benchmarks/notch_hosford/hessian_scale_47628_tpu.json:
+# TPU, f32, the deck's Newton cap of 15), printed beside ours as context
+HESS_TPU_RECORD = 5.435303688049316
+# fe-hessian against cmad_tpu: the card's truth is its own primal (CG at
+# 1e-6), its Newton stops at 1e-8 on its own path and its transpose solves
+# at CG's 1e-6; H against a central difference of the card's gradient at h
+# = 1e-3 in Y, whose truncation and gradient noise (a 1e-6 solve over 2h)
+# are each about 1e-3 of H
+HESS_REF_RTOL, HESS_FD_H, HESS_FD_RTOL = 1e-3, 1e-3, 1e-2
+# fe-hessian-small (480 tets, Newton at 1e-12, CG at 1e-10): card vs CPU
+# (plain step, direct), the scan vs the stepped Hessian, and J_dot (the
+# tangent sweep's dJ along v) vs grad . v, relative; H vs the card's
+# central difference at h = 1e-4 in Y
+HESS_SMALL_RTOL, HESS_SMALL_FD_RTOL, HESS_JDOT_RTOL = 1e-7, 1e-5, 1e-8
+# fe-cli's calibration from Y = 2.6 (calibrate_scale.py's start and
+# optimizer; the TPU record at 480 tets: Y 1.999789 after 30 evaluations,
+# benchmarks/notch_hosford/calibrate_scale_480_tpu.json, context only)
+CAL_Y_RTOL = 1e-3
+CAL_TPU_RECORD = (1.999789, 30)
 SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
 # R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
 ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
@@ -316,6 +363,18 @@ def grad_deck(mesh: str, solver: dict, data_file, tol=None) -> dict:
     if tol is not None:
         deck["residuals"]["global residual"].update(
             {"nonlinear absolute tol": tol, "nonlinear relative tol": tol})
+    return deck
+
+
+def hess_deck(mesh: str, solver: dict, data_file, tol=None,
+              driver: str = "stepped") -> dict:
+    """:func:`grad_deck` with Y = HESS_Y active and no transform (the
+    Hessian in Y), through ``driver``."""
+    deck = grad_deck(mesh, solver, data_file, tol)
+    deck["residuals"]["local residual"]["materials"]["block_1"][
+        "plastic"]["flow stress"]["initial yield"] = {
+            "Y": {"value": HESS_Y, "active": True}}
+    deck["residuals"]["global residual"]["driver"] = driver
     return deck
 
 
@@ -1323,12 +1382,19 @@ def main() -> int:
     lap("mp-gradient")
 
     # ---------------- the FE J2 primal and gradient on the notch ---------
+    from cmad_tpu_torch.cli import fe_subcommands as fs
     from cmad_tpu_torch.cli.fe_common import (
         build_fe_problem_from_deck,
+        build_fe_stepped_hessian_fn,
         build_fe_stepped_vg,
+        fe_params_overlay,
+        fe_primal_drive,
         nonlinear_settings,
-        run_primal_fe,
     )
+    from cmad_tpu_torch.fem.stepped_adjoint import build_fe_stepped_hvp
+    from cmad_tpu_torch.io.exodus import read_results
+    from cmad_tpu_torch.io.results import FieldSpec
+    from cmad_tpu_torch.models.var_types import VarType
     from cmad_tpu_torch.ops import roofline as rl
     from cmad_tpu_torch.ops import segment_sum as segsum
     from cmad_tpu_torch.fem.assembly import (
@@ -1367,7 +1433,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         stats: list = []
-        state, log = run_primal_fe(bundle, stats)
+        state, log = fe_primal_drive(bundle, stats)
         sync()
         k1 = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1568,7 +1634,7 @@ def main() -> int:
     gpu_state, _log, _stats, _k1, _peak = fe_drive("fe-notch-small", bundle)
     cpu_bundle = build_fe_problem_from_deck(
         notch_deck(FE_SMALL_MESH, FE_DIRECT), device="cpu")
-    cpu_state, cpu_log = run_primal_fe(cpu_bundle)
+    cpu_state, cpu_log = fe_primal_drive(cpu_bundle)
     if not fe_converged(cpu_log, nonlinear_settings(cpu_bundle)):
         raise RuntimeError("fe-notch-small: the CPU drive did not converge")
     U_gpu, U_cpu = np.stack(gpu_state.U_history), np.stack(cpu_state.U_history)
@@ -1847,7 +1913,7 @@ def main() -> int:
         {"nonlinear absolute tol": GRAD_SMALL_TOL,
          "nonlinear relative tol": GRAD_SMALL_TOL})
     truth_small = save_truth(
-        run_primal_fe(build_fe_problem_from_deck(tight))[0],
+        fe_primal_drive(build_fe_problem_from_deck(tight))[0],
         "u_truth_480.npy")
     vgs = {}
     for where, solver in (("card", FE_CG_TIGHT), ("cpu", FE_DIRECT)):
@@ -1958,6 +2024,274 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("fe-grad")
 
+    # ---------------- fe-hessian-small ----------------
+    # 480 tets at a Newton tolerance of 1e-12: the card's stepped Hessian
+    # (CG at 1e-10) against the CPU's (plain step, direct), the card's
+    # scan Hessian, a central difference of the card's gradient and J_dot
+    hs = {}
+    for where, solver in (("card", FE_CG_TIGHT), ("cpu", FE_DIRECT)):
+        b = build_fe_problem_from_deck(
+            hess_deck(FE_SMALL_MESH, solver, truth_small, GRAD_SMALL_TOL),
+            device="cuda" if where == "card" else "cpu")
+        p0, s0, ts, hess = build_fe_stepped_hessian_fn(b)
+        t0 = time.perf_counter()
+        J_h, g_h, H_h, asym_h = hess.with_gradient(p0, s0, ts)
+        hs[where] = (b, p0, s0, ts, J_h, float(g_h[0]), float(H_h[0, 0]),
+                     asym_h, time.perf_counter() - t0)
+    b, p0, s0, ts, J_c, g_c, H_c, asym_c, wall_c = hs["card"]
+    H_cpu, wall_cpu = hs["cpu"][6], hs["cpu"][8]
+    t0 = time.perf_counter()
+    H_scan = float(fs.fe_hessian(build_fe_problem_from_deck(hess_deck(
+        FE_SMALL_MESH, FE_CG_TIGHT, truth_small, GRAD_SMALL_TOL,
+        driver="scan")))[0][0, 0])
+    wall_scan = time.perf_counter() - t0
+    _q, _s, _t, vg = build_fe_stepped_vg(b)
+    gp = float(vg(p0 + GRAD_SMALL_H, s0, ts)[1][0])
+    gm = float(vg(p0 - GRAD_SMALL_H, s0, ts)[1][0])
+    fd = (gp - gm) / (2 * GRAD_SMALL_H)
+    fe_s = b.fe_problem
+    hvp = build_fe_stepped_hvp(
+        fe_s, fe_params_overlay(fe_s)[1], b.qoi,
+        nonlinear_solver_settings=nonlinear_settings(b),
+        linear_solver_settings=b.resolved["linear solver"])
+    (_J, g_v, hv), jdot = hvp._with_jdot(p0, s0, ts, np.ones(1))
+    rel = {"cpu": abs(H_c - H_cpu) / abs(H_cpu),
+           "scan": abs(H_scan - H_c) / abs(H_c),
+           "fd": abs(H_c - fd) / abs(fd),
+           "jdot": abs(jdot - float(g_v[0])) / abs(float(g_v[0])),
+           "hv": abs(float(hv[0]) - H_c) / abs(H_c)}
+    say("fe-hessian-small", f"480 tets, Newton tol {GRAD_SMALL_TOL:g}, Y "
+                            f"{HESS_Y}: card stepped (cg + two_level 1e-10)"
+                            f" d2J/dY2 {H_c!r} ({wall_c:.3f} s, J {J_c!r}, "
+                            f"dJ/dY {g_c!r}); CPU stepped (plain step, "
+                            f"direct) {H_cpu!r} ({wall_cpu:.3f} s): rel "
+                            f"diff {rel['cpu']:.3e} (bound "
+                            f"{HESS_SMALL_RTOL:g}); card scan {H_scan!r} "
+                            f"({wall_scan:.3f} s): rel diff "
+                            f"{rel['scan']:.3e} (bound {HESS_SMALL_RTOL:g}); "
+                            f"central difference of the card's gradient at "
+                            f"h = {GRAD_SMALL_H:g} {fd!r}: rel diff "
+                            f"{rel['fd']:.3e} (bound {HESS_SMALL_FD_RTOL:g});"
+                            f" J_dot {jdot!r} vs grad . v {float(g_v[0])!r}:"
+                            f" rel diff {rel['jdot']:.3e} (bound "
+                            f"{HESS_JDOT_RTOL:g}); Hv vs H rel diff "
+                            f"{rel['hv']:.3e}; max_asym {asym_c:.3e}")
+    if not (rel["cpu"] <= HESS_SMALL_RTOL and rel["scan"] <= HESS_SMALL_RTOL
+            and rel["fd"] <= HESS_SMALL_FD_RTOL
+            and rel["jdot"] <= HESS_JDOT_RTOL
+            and rel["hv"] <= HESS_SMALL_RTOL and H_c > 0.0):
+        raise RuntimeError("fe-hessian-small: the Hessian misses its bounds")
+    del hs, b, vg, hvp, fe_s
+    lap("fe-hessian-small")
+
+    # ---------------- fe-hessian (main path) ----------------
+    # hessian_scale.py's path with the records' solver: the truth at Y =
+    # 2.0 through the primal command (Exodus out, read back), then the
+    # hessian command at Y = 2.3, twice, bit for bit
+    hess_dir = work / "fe_hessian"
+    truth_deck = notch_deck(FE_MESH, FE_RECORDS)
+    truth_deck["output"] = {"exodus filename": "truth.exo",
+                            "global residual": ["u"]}
+    t0 = time.perf_counter()
+    fs.run_primal_fe(truth_deck, hess_dir / "truth")
+    primal_s = time.perf_counter() - t0
+    exo = read_results(hess_dir / "truth" / "truth.exo",
+                       nodal_field_specs=[FieldSpec("u", VarType.VECTOR)])
+    u_exo = exo.nodal["u"]
+    exo_norms = [float(np.linalg.norm(u)) for u in u_exo[1:]]
+    exo_rel = max(abs(a - b) / b for a, b in zip(exo_norms, FE_REF_U_NORMS,
+                                                  strict=True))
+    u_data = hess_dir / "u_data.npy"
+    np.save(u_data, u_exo)
+    say("fe-hessian", f"truth (primal command, {primal_s:.3f} s with the "
+                      f"Exodus write; read back {u_exo.shape}): ||U|| per "
+                      f"step {exo_norms}, rel err {exo_rel:.3e} against "
+                      f"cmad_tpu (bound {FE_REF_RTOL:g})")
+    if not exo_rel <= FE_REF_RTOL:
+        raise RuntimeError("fe-hessian: the truth misses cmad_tpu's")
+    hdeck = hess_deck(FE_MESH, FE_RECORDS, u_data)
+    hdeck["output"] = {"write exodus": False}
+    hruns = []
+    for k in range(2):
+        hstats: dict | None = {} if k == 0 else None
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        fs.run_hessian_fe(hdeck, hess_dir / f"hess{k}", stats=hstats)
+        sync()
+        wall = time.perf_counter() - t0
+        if k == 0:
+            hess_counts = read_counts()
+        hruns.append((np.load(hess_dir / f"hess{k}" / "hess.npy"), wall,
+                      hstats))
+    (H_arr, hwall, hstats), (H_arr2, hwall2, _) = hruns
+    H = float(H_arr[0, 0])
+    gb = build_fe_problem_from_deck(hdeck)
+    p0, s0, ts, vg = build_fe_stepped_vg(gb)
+    J_h, g_h = vg(p0, s0, ts)
+    gp = float(vg(p0 + HESS_FD_H, s0, ts)[1][0])
+    gm = float(vg(p0 - HESS_FD_H, s0, ts)[1][0])
+    fd = (gp - gm) / (2 * HESS_FD_H)
+    rel = {"ref": abs(H - FE_HESS_REF_H) / FE_HESS_REF_H,
+           "fd": abs(H - fd) / abs(fd),
+           "J": abs(J_h - FE_HESS_REF_J) / FE_HESS_REF_J,
+           "g": abs(float(g_h[0]) - FE_HESS_REF_DJ_DY) / FE_HESS_REF_DJ_DY}
+    fwd, tan, rev = hstats["forward"], hstats["tangent"], hstats["reverse"]
+    f_wall = sum(f["wall_s"] for f in fwd)
+    t_wall = sum(t["wall_s"] for t in tan)
+    r_wall = sum(r["wall_s"] for r in rev)
+    say("fe-hessian", f"47,628 tets, the records' solver: d2J/dY2 {H!r}; "
+                      f"cmad_tpu (CPU f64, direct) {FE_HESS_REF_H!r}: rel "
+                      f"diff {rel['ref']:.3e} (bound {HESS_REF_RTOL:g}); "
+                      f"central difference of the card's gradient at h = "
+                      f"{HESS_FD_H:g} {fd!r}: rel diff {rel['fd']:.3e} "
+                      f"(bound {HESS_FD_RTOL:g}); the TPU record (TPU, f32, "
+                      f"Newton cap 15; context only) {HESS_TPU_RECORD!r}; "
+                      f"two runs bit-identical {np.array_equal(H_arr, H_arr2)}"
+                      f"; {hwall:.3f} s and {hwall2:.3f} s per hessian "
+                      f"command; J {J_h!r} dJ/dY {float(g_h[0])!r} vs "
+                      f"cmad_tpu {FE_HESS_REF_J!r} {FE_HESS_REF_DJ_DY!r}: "
+                      f"rel diff {rel['J']:.3e}, {rel['g']:.3e} (bounds "
+                      f"{FE_GRAD_J_RTOL:g}, {FE_GRAD_G_RTOL:g})")
+    say("fe-hessian", f"one Hessian evaluation: primal sweep {f_wall:.3f} s"
+                      f" (Newton {[f['newton_iters'] for f in fwd]}, CG "
+                      f"iterations {sum(sum(f.get('cg_iters', [])) for f in fwd)}"
+                      f"), tangent sweep {t_wall:.3f} s (tangent forward "
+                      f"{f_wall + t_wall:.3f} s), reverse sweep "
+                      f"{r_wall:.3f} s (re-solve Newton "
+                      f"{[r['newton_iters'] for r in rev]}, their CG "
+                      f"iterations {sum(sum(r['newton_cg_iters']) for r in rev)}"
+                      f", the rule's transpose solves' CG iterations "
+                      f"{sum(sum(r['cg_iters']) for r in rev)}); launches "
+                      f"{hess_counts}")
+    for k, (f, t_, r) in enumerate(zip(fwd, tan, rev[::-1], strict=True),
+                                   start=1):
+        say("fe-hessian", f"step {k}: primal {f['wall_s']:.3f} s, tangent "
+                          f"{t_['wall_s']:.3f} s, reverse {r['wall_s']:.3f} "
+                          f"s (assembly {r['assembly_s']:.3f} s, transpose "
+                          f"solves {r['solve_s']:.3f} s, CG {r['cg_iters']})")
+    if not (rel["ref"] <= HESS_REF_RTOL and rel["fd"] <= HESS_FD_RTOL
+            and rel["J"] <= FE_GRAD_J_RTOL and rel["g"] <= FE_GRAD_G_RTOL
+            and np.array_equal(H_arr, H_arr2) and np.isfinite(H)):
+        raise RuntimeError("fe-hessian: the Hessian misses its bounds or is "
+                           "not reproducible")
+    if not all(hess_counts[k] > 0 for k in (
+            "j2_soa_step", "segment_sum_tile", "segment_sum_block",
+            "coarse_pair_sum", "csr_matvec")):
+        raise RuntimeError(f"fe-hessian: a kernel never ran: {hess_counts}")
+    del gb, vg, hruns
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-hessian")
+
+    # ---------------- fe-cli ----------------
+    # every FE command at 480 tets with the deck as a dict: each file
+    # against the library call's number, bit for bit
+    cli = work / "fe_cli"
+    cli_t: dict[str, float] = {}
+
+    def command(name, run, deck, out, **kw):
+        sync()
+        t0 = time.perf_counter()
+        run(deck, cli / out, **kw)
+        sync()
+        cli_t[f"{name} ({out})"] = time.perf_counter() - t0
+        return cli / out
+
+    reset_counts()
+    base = notch_deck(FE_SMALL_MESH, FE_RECORDS)
+    base["output"] = {"write restart": True}
+    out = command("primal", fs.run_primal_fe, base, "primal")
+    solver_log = json.loads((out / "solver.json").read_text())
+    U_exo = read_results(out / "notch_hosford.exo").nodal
+    ckpt = np.load(out / "restart.npz")
+    # the library call on the same deck: every file holds its numbers
+    lib_bundle = build_fe_problem_from_deck(base)
+    lib_state, lib_log = fe_primal_drive(lib_bundle)
+    n_t = len(lib_state.t_history)
+    U_hist = np.stack([np.stack([U_exo[f"u_{c}"][k] for c in "xyz"],
+                                axis=1).reshape(-1) for k in range(n_t)])
+    primal_same = {
+        "exodus U history": (len(U_exo["u_x"]) == n_t and np.array_equal(
+            U_hist, np.stack([lib_state.U_at(k) for k in range(n_t)]))),
+        "restart U": np.array_equal(ckpt["U"], lib_state.U_at(n_t - 1)),
+        "restart xi": all(
+            np.array_equal(ckpt[f"xi__{b}"], lib_state.xi_at(n_t - 1, b))
+            for b in lib_bundle.fe_problem.models_by_block),
+        "solver.json": solver_log == lib_log,
+    }
+    if not (all(primal_same.values()) and fe_converged(
+            solver_log, nonlinear_settings(lib_bundle))):
+        raise RuntimeError(f"fe-cli: the primal's files differ from "
+                           f"fe_primal_drive ({primal_same}), or a step "
+                           "did not converge")
+    del lib_bundle, lib_state
+    longer = notch_deck(FE_SMALL_MESH, FE_RECORDS)
+    longer["discretization"]["num steps"] = 6
+    longer["output"] = {"write restart": True, "write exodus": False}
+    resumed = {**longer, "restart": {"file": str(out / "restart.npz")}}
+    full = np.load(command("primal", fs.run_primal_fe, longer, "full")
+                   / "restart.npz")
+    res = np.load(command("primal", fs.run_primal_fe, resumed, "resumed")
+                  / "restart.npz")
+    restart_same = (np.array_equal(full["U"], res["U"])
+                    and np.array_equal(full["xi__block_1"],
+                                       res["xi__block_1"]))
+    data = cli / "primal" / "notch_hosford.exo"
+    checks = {"restart resumed == straight 6 steps": restart_same,
+              **{f"primal {k}": v for k, v in primal_same.items()}}
+    for driver in ("stepped", "scan"):
+        deck = grad_deck(FE_SMALL_MESH, FE_RECORDS, data)
+        deck["residuals"]["global residual"]["driver"] = driver
+        deck["output"] = {"write exodus": False}
+        bundle_c = build_fe_problem_from_deck(deck)
+        J_f = json.loads((command("objective", fs.run_objective_fe, deck,
+                                  f"objective_{driver}") / "J.json")
+                         .read_text())["J"]
+        checks[f"objective {driver}"] = J_f == fs.fe_objective(bundle_c)
+        g_f = np.load(command("gradient", fs.run_gradient_fe, deck,
+                              f"gradient_{driver}") / "grad.npy")
+        x0, vg_c = fs.fe_value_and_grad(bundle_c)
+        checks[f"gradient {driver}"] = np.array_equal(g_f, vg_c(x0)[1])
+        hdeck = hess_deck(FE_SMALL_MESH, FE_RECORDS, data, driver=driver)
+        hdeck["output"] = {"write exodus": False}
+        H_f = np.load(command("hessian", fs.run_hessian_fe, hdeck,
+                              f"hessian_{driver}") / "hess.npy")
+        checks[f"hessian {driver}"] = np.array_equal(
+            H_f, fs.fe_hessian(build_fe_problem_from_deck(hdeck))[0])
+        say("fe-cli", f"{driver}: J {J_f!r}, grad {g_f.tolist()}, hessian "
+                      f"(Y {HESS_Y}) {H_f.tolist()}")
+    cdeck = grad_deck(FE_SMALL_MESH, FE_RECORDS, data)
+    cdeck["optimizer"] = {"algorithm": "L-BFGS-B",
+                          "options": {"maxiter": 100, "ftol": 1.0e-14,
+                                      "gtol": 1.0e-10}}
+    cdeck["output"] = {"write exodus": False}
+    out = command("calibrate", fs.run_calibrate_fe, cdeck, "calibrate")
+    fit = json.loads((out / "active_params.json").read_text())
+    hist = json.loads((out / "opt_history.json").read_text())["history"]
+    status = json.loads((out / "opt_status.json").read_text())
+    Y_fit = fit["block_1.plastic.flow_stress.initial_yield.Y"]
+    x0, vg_c = fs.fe_value_and_grad(build_fe_problem_from_deck(cdeck))
+    checks["calibrate's first J"] = hist[0]["J"] == vg_c(x0)[0]
+    cli_counts = read_counts()
+    say("fe-cli", f"calibrate from Y {GRAD_Y}: Y {Y_fit!r} after "
+                  f"{len(hist)} evaluations ({status['nit']} iterations, "
+                  f"J {hist[0]['J']:.6e} -> {hist[-1]['J']:.6e}, "
+                  f"{status['message']}); the TPU record (TPU, f32; context "
+                  f"only) Y {CAL_TPU_RECORD[0]} after {CAL_TPU_RECORD[1]}")
+    say("fe-cli", f"command walls (s): "
+                  f"{ {k: round(v, 3) for k, v in cli_t.items()} }; files "
+                  f"vs the library calls, bit for bit: {checks}; launches "
+                  f"{cli_counts}")
+    if not (all(checks.values())
+            and abs(Y_fit - GRAD_Y_TRUTH) <= CAL_Y_RTOL * GRAD_Y_TRUTH
+            and all(cli_counts[k] > 0 for k in (
+                "j2_soa_step", "segment_sum_tile", "segment_sum_block",
+                "coarse_pair_sum", "csr_matvec"))):
+        raise RuntimeError(f"fe-cli: {checks}, Y {Y_fit}, launches "
+                           f"{cli_counts}")
+    lap("fe-cli")
+
     # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
@@ -2028,18 +2362,19 @@ def main() -> int:
 
     # ---------------- launches ----------------
     # the FE kernels' counts are fe-grad's first gradient's (its forward
-    # Newton, reverse assemblies and transpose solves)
-    main_path = {"j2_soa_step": grad_counts["j2_soa_step"],
-                 "j2_soa_history": launches["j2_soa_history"],
+    # Newton, reverse assemblies and transpose solves) plus fe-hessian's
+    # first Hessian evaluation's (the hessian command)
+    fe_main = {k: grad_counts[k] + hess_counts[k] for k in (
+        "j2_soa_step", "segment_sum_tile", "segment_sum_block",
+        "coarse_pair_sum", "csr_matvec")}
+    main_path = {"j2_soa_history": launches["j2_soa_history"],
                  "j2_aos_step": mp_launches["j2_aos_step"],
                  "j2_total_step": mp_launches["j2_total_step"],
-                 "j2_soa_history_iters": r_launches,
-                 "segment_sum_tile": grad_counts["segment_sum_tile"],
-                 "segment_sum_block": grad_counts["segment_sum_block"],
-                 "coarse_pair_sum": grad_counts["coarse_pair_sum"],
-                 "csr_matvec": grad_counts["csr_matvec"]}
-    say("launches", f"main paths (fe-grad; history-drive; mp-batched; "
-                    f"roofline): {main_path}; fe-notch's primal launched "
+                 "j2_soa_history_iters": r_launches, **fe_main}
+    say("launches", f"main paths (fe-grad + fe-hessian; history-drive; "
+                    f"mp-batched; roofline): {main_path}; fe-grad "
+                    f"{grad_counts}; fe-hessian {hess_counts}; fe-notch's "
+                    f"primal launched "
                     f"{fe_counts}; fe-dispatch launched j2_soa_step "
                     f"{launches['j2_soa_step']} times")
     if not all(v > 0 for v in main_path.values()):

@@ -1,17 +1,21 @@
-"""FE deck builder, the FE primal drive and the stepped gradient.
+"""FE deck builder, the FE primal drive and the sensitivity builders.
 
-Port of the FE part of ``cmad_tpu/cli/fe_common.py`` (parity: reference
+Port of ``cmad_tpu/cli/fe_common.py`` (parity: reference
 ``cmad/cli/common.py:149-785``, FE half): deck -> mesh -> GR -> per-block
 models -> Dirichlet BCs -> GlobalDofMap -> FEProblem + time schedule +
-QoI, on the card unless the caller asks for the CPU; the parameter
-overlay (:func:`fe_params_overlay`) and the stepped value-and-gradient of
-one load case (:func:`build_fe_stepped_vg`).
+QoI, on the card unless the caller asks for the CPU; the load cases
+(:func:`build_fe_cases`); the parameter overlay
+(:func:`fe_params_overlay`); the scan driver's ``J(params_flat)``
+(:func:`build_fe_J_of_params_flat`, whose gradient and Hessian are
+autograd's); the stepped value-and-gradient of every load case
+(:func:`build_fe_stepped_vg`) and the stepped Hessian
+(:func:`build_fe_stepped_hessian_fn`); the primal drive of the deck's
+driver (:func:`fe_primal_drive`).
 
 :func:`build_fe_problem_from_deck` takes a deck path or an
-already-loaded deck dict. A dict needs neither PyYAML nor jsonschema; a
-path needs PyYAML (imported when the deck is read). JSON-Schema
-validation, the ``cmad`` commands and their writers, load cases and the
-multi-case gradient come with ROADMAP queue 1, item 18.
+already-loaded deck dict. A dict needs neither PyYAML nor jsonschema and
+is not validated; a path needs both (imported when the deck is read and
+validated against the schema of its subcommand).
 """
 from __future__ import annotations
 
@@ -66,20 +70,25 @@ class FEProblemBundle:
 
 
 def build_fe_problem_from_deck(
-        deck: Path | str | dict[str, Any], *,
-        dtype: torch.dtype = config.DEFAULT_DTYPE,
+        deck: Path | str | dict[str, Any], subcommand: str | None = None,
+        *, dtype: torch.dtype = config.DEFAULT_DTYPE,
         device: torch.device | str = config.DEFAULT_DEVICE
 ) -> FEProblemBundle:
     """The FE problem of a deck (a path, or the deck as a dict), with its
     QoI when the deck has a ``qoi`` section, on ``device`` in ``dtype``;
-    the default device is the card, and without one this raises."""
+    the default device is the card, and without one this raises. A deck
+    read from a path is validated against the schema of ``subcommand``
+    (by default ``calibrate`` for a deck with an ``optimizer``,
+    ``gradient`` for one with a ``qoi``, else ``primal``)."""
     device = config.checked_device(device)
     if isinstance(deck, dict):
         resolved = apply_deck_defaults(deck)
     else:
+        from cmad_tpu_torch.io.schema import validate_deck
+
         resolved = apply_deck_defaults(load_deck(Path(deck)))
-    for section, item in (("load cases", "18"),
-                          ("restart", "18"), ("surface flux bcs", "8"),
+        validate_deck(resolved, subcommand or _default_subcommand(resolved))
+    for section, item in (("surface flux bcs", "8"),
                           ("body forces", "8")):
         if resolved.get(section):
             raise NotImplementedError(
@@ -161,26 +170,139 @@ def nonlinear_settings(bundle: FEProblemBundle) -> dict[str, Any]:
             "line search": gr.get("line search", {})}
 
 
-def run_primal_fe(bundle: FEProblemBundle, stats: list | None = None
-                  ) -> tuple[FEState, list[dict[str, float]]]:
+def fe_primal_drive(bundle: FEProblemBundle, stats: list | None = None,
+                    t_schedule=None, U_init=None, xi_init_by_block=None
+                    ) -> tuple[FEState, list[dict[str, float]]]:
     """The deck's quasi-static primal drive, ``(FEState, solver_log)``:
-    what ``cmad primal`` computes before it writes. The deck's ``driver``
-    must be ``stepped`` (the scanned and host drivers are not ported:
-    ROADMAP queue 1, item 15)."""
+    what ``cmad primal`` computes before it writes. ``stepped`` and
+    ``scan`` (the default) both run :func:`fe_quasistatic_drive_stepped`
+    (``stats`` receives one dict per step): without an autograd tape the
+    scan trajectory is the same Newton per step, with the same bits, and
+    the stepped loop also records each step's true residual pair.
+    ``t_schedule`` (default: the deck's) and the initial state resume a
+    restart. The ``host`` driver raises (ROADMAP queue 1, item 18)."""
     from cmad_tpu_torch.fem.driver import fe_quasistatic_drive_stepped
 
     gr = bundle.resolved["residuals"]["global residual"]
-    driver = gr.get("driver", "scan")
-    if driver != "stepped":
-        raise NotImplementedError(
-            f"driver {driver!r} is not ported yet (ROADMAP queue 1, item "
-            "15); set 'driver: stepped' in the global residual section")
+    fe_driver(bundle)
+    ts = bundle.t_schedule.tolist() if t_schedule is None \
+        else [float(t) for t in t_schedule]
     return fe_quasistatic_drive_stepped(
-        bundle.fe_problem, bundle.t_schedule.tolist(),
-        nonlinear_solver_settings=nonlinear_settings(bundle),
+        bundle.fe_problem, ts, nonlinear_solver_settings=nonlinear_settings(
+            bundle),
         linear_solver_settings=bundle.resolved["linear solver"],
+        U_init=U_init, xi_init_by_block=xi_init_by_block,
         max_iters_per_dispatch=gr.get("max iters per dispatch"),
         steps_per_dispatch=gr.get("steps per dispatch"), stats=stats)
+
+
+def fe_driver(bundle: FEProblemBundle) -> str:
+    """The deck's driver, ``scan`` (the default) or ``stepped``; the host
+    driver is not ported and raises."""
+    driver = bundle.resolved["residuals"]["global residual"].get(
+        "driver", "scan")
+    if driver == "host":
+        raise NotImplementedError(
+            "driver 'host' (the host-loop Newton, fe_newton_solve_host) is "
+            "not ported yet: ROADMAP queue 1, item 18; use 'scan' or "
+            "'stepped'")
+    if driver not in ("scan", "stepped"):
+        raise ValueError(f"unknown driver {driver!r}; expected 'scan', "
+                         "'stepped' or 'host'")
+    return driver
+
+
+def build_fe_cases(bundle: FEProblemBundle):
+    """``[(name, weight, t_schedule, qoi)]``: one entry per ``load cases``
+    deck entry, or the single base case when the section is absent.
+
+    A load case re-drives the same FEProblem through its own schedule
+    (``num steps`` / ``step size`` over the deck's) against its own QoI
+    (its ``qoi`` shallow-merged over the deck's), each from the virgin
+    state; the objectives add up, times each case's ``weight``."""
+    resolved = bundle.resolved
+    cases = resolved.get("load cases")
+    if not cases:
+        return [("base", 1.0, bundle.t_schedule, bundle.qoi)]
+    base_disc = resolved["discretization"]
+    out = []
+    seen: set[str] = set()
+    for case in cases:
+        name = case["name"]
+        if name in seen:
+            raise ValueError(f"load cases: duplicate case name {name!r}")
+        seen.add(name)
+        disc = dict(base_disc)
+        for key in ("num steps", "step size"):
+            if key in case:
+                disc[key] = case[key]
+        ts = _load_t_schedule(disc)
+        qoi_section = {**resolved["qoi"], **(case.get("qoi") or {})}
+        qoi = resolve_qoi(qoi_section["name"]).from_deck(
+            qoi_section, bundle.fe_problem, ts.tolist())
+        out.append((name, float(case.get("weight", 1.0)), ts, qoi))
+    return out
+
+
+def _state_init(bundle: FEProblemBundle):
+    """``(U0, {block: xi0})`` of the virgin state, on the problem's
+    device."""
+    fe_problem = bundle.fe_problem
+    state = FEState.from_problem(fe_problem,
+                                 t_init=float(bundle.t_schedule[0]))
+    dev, dtype = fe_problem.device, fe_problem.dtype
+    return (torch.as_tensor(state.U_at(0), dtype=dtype, device=dev),
+            {b: torch.as_tensor(state.xi_at(0, b), dtype=dtype, device=dev)
+             for b in fe_problem.models_by_block})
+
+
+def _checked_cases(bundle: FEProblemBundle):
+    """:func:`build_fe_cases`, with every case's boundary values
+    evaluated once at its step times (a bad expression fails here)."""
+    if bundle.qoi is None:
+        raise ValueError("bundle.qoi is required (non-primal subcommand)")
+    fe_problem = bundle.fe_problem
+    cases = build_fe_cases(bundle)
+    dbc_arrays = fe_problem.kernel_arrays.dbc_arrays
+    for _name, _w, ts_case, _qoi in cases:
+        for t in ts_case[1:]:
+            fe_problem.dof_map.evaluate_prescribed_values(dbc_arrays,
+                                                          float(t))
+    return cases
+
+
+def build_fe_J_of_params_flat(bundle: FEProblemBundle):
+    """``(params_flat_init, state_init, J_of_params_flat)`` for the scan
+    driver: ``J_of_params_flat(params_flat, state_init)`` drives every
+    load case from the virgin state over its own schedule with the FE
+    Newton's rule on the autograd tape (``fem/driver.py
+    build_fe_quasistatic_trajectory``) and returns the weighted sum of
+    the cases' J as a tensor, so ``torch.autograd.grad`` gives the
+    gradient and a double backward the Hessian in the canonical flat
+    active vector."""
+    from cmad_tpu_torch.fem.driver import build_fe_quasistatic_trajectory
+
+    fe_problem = bundle.fe_problem
+    cases = _checked_cases(bundle)
+    params_flat_init, params_by_block_of_flat = fe_params_overlay(
+        fe_problem)
+    trajectory = build_fe_quasistatic_trajectory(
+        fe_problem, nonlinear_solver_settings=nonlinear_settings(bundle),
+        linear_solver_settings=bundle.resolved["linear solver"])
+    fe_arrays = fe_problem.kernel_arrays
+
+    def J_of_params_flat(params_flat, state_init):
+        params_by_block = params_by_block_of_flat(params_flat)
+        J = torch.zeros((), dtype=fe_problem.dtype, device=fe_problem.device)
+        for _name, w, ts_case, qoi_c in cases:
+            step = qoi_c.step_contribution(params_by_block, fe_arrays)
+            _, _, J_c = trajectory(params_by_block, state_init,
+                                   ts_case.tolist(),
+                                   qoi_step_contribution=step)
+            J = J + w * J_c
+        return J
+
+    return params_flat_init, _state_init(bundle), J_of_params_flat
 
 
 def fe_params_overlay(fe_problem: FEProblem):
@@ -212,18 +334,17 @@ def fe_params_overlay(fe_problem: FEProblem):
 
 def build_fe_stepped_vg(bundle: FEProblemBundle):
     """``(params_flat_init, state_init, t_schedule, vg)`` for the stepped
-    sensitivity path (``fem/stepped_adjoint.py``) of the deck's one load
-    case: ``vg(params_flat, state_init, t_schedule) -> (J, grad)``, the
-    gradient with respect to the canonical flat active vector. A deck
-    with ``load cases`` raised when it was built (ROADMAP queue 1, item
-    18)."""
+    sensitivity path (``fem/stepped_adjoint.py``): ``vg(params_flat,
+    state_init, t_schedule, stats=None) -> (J, grad)``, the gradient with
+    respect to the canonical flat active vector. With ``load cases`` the
+    objective is their weighted sum, each case over its own schedule; the
+    schedule passed in must then be the base one returned here (it raises
+    otherwise, rather than drive the cases over a schedule they ignore)."""
     from cmad_tpu_torch.fem.stepped_adjoint import (
         build_fe_stepped_value_and_grad,
     )
 
     fe_problem = bundle.fe_problem
-    if bundle.qoi is None:
-        raise ValueError("bundle.qoi is required (non-primal subcommand)")
     gr_section = bundle.resolved["residuals"]["global residual"]
     if "max iters per dispatch" in gr_section:
         raise ValueError(
@@ -231,27 +352,80 @@ def build_fe_stepped_vg(bundle: FEProblemBundle):
             "applies to the stepped PRIMAL drive only; the stepped "
             "sensitivity path runs one Newton (+ its adjoint) per time "
             "step. Remove it for gradient/calibrate decks.")
-    state = FEState.from_problem(fe_problem,
-                                 t_init=float(bundle.t_schedule[0]))
-    dev, dtype = fe_problem.device, fe_problem.dtype
-    state_init = (torch.as_tensor(state.U_at(0), dtype=dtype, device=dev),
-                  {b: torch.as_tensor(state.xi_at(0, b), dtype=dtype,
-                                      device=dev)
-                   for b in fe_problem.models_by_block})
+    cases = _checked_cases(bundle)
     params_flat_init, params_by_block_of_flat = fe_params_overlay(
         fe_problem)
-    vg = build_fe_stepped_value_and_grad(
+    case_vgs = [
+        (w, ts_case, build_fe_stepped_value_and_grad(
+            fe_problem, params_by_block_of_flat, qoi_c,
+            nonlinear_solver_settings={**nonlinear_settings(bundle),
+                                       "print convergence": False},
+            linear_solver_settings=bundle.resolved["linear solver"],
+            steps_per_dispatch=gr_section.get("steps per dispatch")))
+        for _name, w, ts_case, qoi_c in cases]
+    state_init = _state_init(bundle)
+    if len(case_vgs) == 1:
+        return params_flat_init, state_init, bundle.t_schedule, \
+            case_vgs[0][2]
+    base = np.asarray(bundle.t_schedule, dtype=np.float64)
+
+    def vg_multi(params_flat, state_init, t_schedule, stats=None):
+        """The weighted sum of the load cases' ``(J, grad)``, each case
+        from the virgin state over its own schedule."""
+        if not np.array_equal(np.asarray(t_schedule, dtype=np.float64),
+                              base):
+            raise ValueError(
+                "load cases: each case drives its own schedule; pass the "
+                "base schedule that build_fe_stepped_vg returned")
+        J, grad = 0.0, None
+        for w, ts_case, vg_c in case_vgs:
+            J_c, g_c = vg_c(params_flat, state_init, ts_case, stats)
+            J += w * J_c
+            grad = w * g_c if grad is None else grad + w * g_c
+        return J, grad
+
+    return params_flat_init, state_init, bundle.t_schedule, vg_multi
+
+
+def build_fe_stepped_hessian_fn(bundle: FEProblemBundle):
+    """``(params_flat_init, state_init, t_schedule, hessian_fn)`` for the
+    stepped Hessian (``fem/stepped_adjoint.py build_fe_stepped_hessian``):
+    ``hessian_fn(params_flat, state_init, t_schedule, stats=None) -> (H,
+    max_asym)``, the ``driver: stepped`` backend of ``cmad hessian``. The
+    hessian schema takes no load cases."""
+    from cmad_tpu_torch.fem.stepped_adjoint import build_fe_stepped_hessian
+
+    gr_section = bundle.resolved["residuals"]["global residual"]
+    for cap in ("max iters per dispatch", "steps per dispatch"):
+        if cap in gr_section:
+            raise ValueError(
+                f"residuals.global residual: '{cap}' is not supported "
+                "on the stepped HESSIAN path; each step is one tangent "
+                f"and one reverse step. Remove '{cap}' for hessian decks.")
+    if bundle.resolved.get("load cases"):
+        raise ValueError("load cases are not part of the hessian "
+                         "subcommand's deck")
+    _checked_cases(bundle)
+    fe_problem = bundle.fe_problem
+    params_flat_init, params_by_block_of_flat = fe_params_overlay(
+        fe_problem)
+    hess = build_fe_stepped_hessian(
         fe_problem, params_by_block_of_flat, bundle.qoi,
         nonlinear_solver_settings={**nonlinear_settings(bundle),
                                    "print convergence": False},
-        linear_solver_settings=bundle.resolved["linear solver"],
-        steps_per_dispatch=gr_section.get("steps per dispatch"))
-    return params_flat_init, state_init, bundle.t_schedule, vg
+        linear_solver_settings=bundle.resolved["linear solver"])
+    return params_flat_init, _state_init(bundle), bundle.t_schedule, hess
 
 
 # ----------------------------------------------------------------------
 # deck-section helpers
 # ----------------------------------------------------------------------
+def _default_subcommand(resolved: dict[str, Any]) -> str:
+    if "optimizer" in resolved:
+        return "calibrate"
+    return "gradient" if "qoi" in resolved else "primal"
+
+
 def _deck_tols(section, kind: str, dtype: torch.dtype) -> tuple[float, float]:
     """The section's Newton tolerances. Decks are written against the
     float64 tolerances; in float32 they are raised to that dtype's floor

@@ -167,7 +167,8 @@ def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
     vals = torch.cat(vals_all)
     unique = segment_sum(vals, fe_arrays.coo_dedup_plan)
     K = CooMatrix(unique, fe_arrays.coo_rows, fe_arrays.coo_cols,
-                  fe_arrays.coo_row_plan, fe_problem.dof_map.num_total_dofs)
+                  fe_arrays.coo_row_plan, fe_arrays.coo_col_plan,
+                  fe_problem.dof_map.num_total_dofs)
     return K, R, xi_solved_by_block
 
 

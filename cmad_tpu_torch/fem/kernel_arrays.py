@@ -48,6 +48,7 @@ class FEKernelArrays:
     coo_dedup_scatter: Tensor
     coo_dedup_plan: SegmentPlan
     coo_row_plan: SegmentPlan
+    coo_col_plan: SegmentPlan
     geometry_cache: dict[str, dict]
     embedded_sparsity: EmbeddedSparsity
     prescribed_indices: Tensor
@@ -103,6 +104,7 @@ def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
         coo_dedup_scatter=on(dedup),
         coo_dedup_plan=plan_from_target(dedup, rows.shape[0], dev),
         coo_row_plan=plan_from_offsets(indptr, dev),
+        coo_col_plan=plan_from_target(cols, n_dofs, dev),
         geometry_cache=fe_problem.geometry_cache,
         embedded_sparsity=build_embedded_sparsity(fe_problem, rows, cols),
         prescribed_indices=on(dof_map.prescribed_indices),

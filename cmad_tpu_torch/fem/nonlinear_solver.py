@@ -31,15 +31,24 @@ The implicit-function rule of the converged solve is two
 Both backwards are :func:`_ift_backward`, the transpose of the JAX
 package's ``_ift_tangents``: the cotangent on U* is ``U_bar + (dxi/dU)^T
 xi_bar``; ``K^T lambda`` = that cotangent is solved with the step's own
-linear-solver arm at its static rtol (K is symmetric); the inputs'
+linear-solver arm at its static rtol, on the transposed data; the inputs'
 cotangents are ``-(dr/d(p, U_prev, xi_prev))^T lambda + (dxi/d(.))^T
 xi_bar``, from ``torch.autograd.grad`` of one assembly at U* with grad
 enabled (on the card that assembly launches ``j2_soa_step`` through
 ``SoaStep``, whose backward is the closed-form transpose). Every
 parameter tensor is an explicit input of the Function (the leaves of the
-per-block parameter trees), never captured by a closure. The backward is
-first-order: it does not support double backward (the stepped Hessian,
-ROADMAP queue 1, item 17.3). The host-loop driver and the tunnel-only
+per-block parameter trees), never captured by a closure.
+
+The backward has derivatives of its own (a backward with
+``create_graph``): it then builds its graph, with the transpose solve
+differentiable (``sparse_solve.LinearSolve``) and :class:`FeNewtonSolve`'s
+U* its own saved output, so a double backward sees U* move with the
+inputs through this same rule: the Hessians of ``fem/stepped_adjoint.py``
+and of the scan driver. :class:`FeSolutionAt` holds U* as data, so its
+second derivatives in the inputs miss U*'s motion (the JAX package's
+``_fe_solution_at_ad`` drops its tangent alike); its backward is still
+exactly linear in the incoming cotangents, which is all the stepped
+HVP's tangent sweep asks of it. The host-loop driver and the tunnel-only
 chunked Newton are not ported.
 """
 from __future__ import annotations
@@ -59,10 +68,11 @@ from cmad_tpu_torch.fem.sparse_solve import (
     _csr_operator,
     _embedded_bc_enforce,
     _embedded_residual,
-    jax_cg,
-    jax_cg_two_level,
-    scipy_lu,
+    cg_unique,
+    linear_solve,
+    lu_unique,
 )
+from cmad_tpu_torch.ops.segment_sum import segment_sum
 from cmad_tpu_torch.typing import Tensor
 from cmad_tpu_torch.util.line_search import (
     DEFAULT_LINE_SEARCH_SETTINGS,
@@ -117,17 +127,18 @@ def get_two_level_pattern(fe_problem: FEProblem,
     return pattern
 
 
-def solve_linear(K_data: Tensor, fe_problem: FEProblem,
-                 fe_arrays: FEKernelArrays, rhs: Tensor,
-                 settings: dict[str, Any],
-                 rtol_override: float | None = None,
-                 stats: dict | None = None) -> Tensor:
-    """Dispatch on ``settings['type']`` (``direct`` | ``cg``) and, for
-    ``cg``, the preconditioner (``jacobi`` | ``two_level``).
-    ``rtol_override`` replaces the static rtol of the iterative arms (the
-    inexact-Newton forcing term). ``stats["cg_iters"]`` collects each CG
-    solve's iteration count. The other arms of the JAX package raise,
-    naming the ROADMAP item that ports them."""
+def linear_solver(fe_problem: FEProblem, fe_arrays: FEKernelArrays,
+                  settings: dict[str, Any],
+                  rtol_override: float | None = None,
+                  stats: dict | None = None):
+    """``solve(unique, b)``, the arm ``settings`` names, on the
+    deduplicated CSR data ``unique`` (outside autograd): dispatch on
+    ``settings['type']`` (``direct`` | ``cg``) and, for ``cg``, the
+    preconditioner (``jacobi`` | ``two_level``). ``rtol_override``
+    replaces the static rtol of the iterative arms (the inexact-Newton
+    forcing term). ``stats["cg_iters"]`` collects each CG solve's
+    iteration count. The other arms of the JAX package raise, naming the
+    ROADMAP item that ports them."""
     sparsity = fe_arrays.embedded_sparsity
     kind = settings["type"]
     if settings.get("equilibrate", "auto") not in ("auto", False):
@@ -140,21 +151,22 @@ def solve_linear(K_data: Tensor, fe_problem: FEProblem,
             "f64 refinement) is not ported yet: ROADMAP queue 1, item 13")
 
     if kind == "direct":
-        return scipy_lu(K_data, sparsity, rhs)
+        return lambda unique, b: lu_unique(unique, sparsity, b)
 
     rtol = settings["rtol"] if rtol_override is None else rtol_override
     precon_spec = settings.get("preconditioner", {"type": "jacobi"})
     precon = precon_spec["type"]
     if kind == "cg":
         if precon == "jacobi":
-            return jax_cg(K_data, sparsity, rhs, rtol=rtol,
-                          max_iters=settings["max iters"], stats=stats)
+            max_iters = settings["max iters"]
+            return lambda unique, b: cg_unique(unique, sparsity, b, rtol,
+                                               max_iters, stats)
         if precon == "two_level":
+            max_iters = settings["max iters"]
             pattern = get_two_level_pattern(
                 fe_problem, precon_spec.get("aggregate nodes", 48))
-            return jax_cg_two_level(
-                K_data, sparsity, rhs, pattern, rtol=rtol,
-                max_iters=settings["max iters"], stats=stats)
+            return lambda unique, b: cg_unique(unique, sparsity, b, rtol,
+                                               max_iters, stats, pattern)
         if precon == "chebyshev":
             raise NotImplementedError(
                 "cg + chebyshev is not ported yet: ROADMAP queue 1, item "
@@ -169,6 +181,26 @@ def solve_linear(K_data: Tensor, fe_problem: FEProblem,
     raise ValueError(
         f"unknown linear solver type {kind!r}; expected 'direct', 'cg', "
         "or 'gmres'")
+
+
+def solve_linear(K_data: Tensor, fe_problem: FEProblem,
+                 fe_arrays: FEKernelArrays, rhs: Tensor,
+                 settings: dict[str, Any],
+                 rtol_override: float | None = None,
+                 stats: dict | None = None,
+                 transpose: bool = False) -> Tensor:
+    """``K^-1 rhs`` (``K^-T rhs`` with ``transpose``) for the embedded-BC
+    data ``K_data``, through the arm of :func:`linear_solver`;
+    differentiable in ``K_data`` and ``rhs`` to any order
+    (``sparse_solve.linear_solve``: the backward is the transpose solve
+    through the same arm)."""
+    sparsity = fe_arrays.embedded_sparsity
+    solve = linear_solver(fe_problem, fe_arrays, settings, rtol_override,
+                          stats)
+    unique = segment_sum(K_data, sparsity.dedup_plan)
+    if transpose:
+        unique = unique[sparsity.transpose]
+    return linear_solve(unique, rhs, sparsity, solve)
 
 
 def _fe_newton_primal(fe_problem, fe_arrays, params_by_block, U_prev,
@@ -317,59 +349,88 @@ def _embedded_r_and_xi(spec: _IftSpec, params_by_block, U, U_prev,
     return _embedded_residual(R, K, U, presc_idx, pv, K_ii), K_data, xi
 
 
-def _ift_backward(spec: _IftSpec, U_star: Tensor, inputs, grads, needs):
+def _ift_backward(spec: _IftSpec, U_star: Tensor, inputs, grads, needs,
+                  U_moves: bool = True):
     """The transpose of the IFT tangents at ``U_star``: the cotangents of
     ``inputs = (U_prev, *xi_prev, *param leaves)`` (those ``needs`` marks)
-    from those of ``(U*, *xi*)``."""
+    from those of ``(U*, *xi*)``.
+
+    Under a backward that builds a graph (``create_graph``, so
+    ``torch.is_grad_enabled()``), the result is itself differentiable, in
+    the incoming cotangents and in the inputs: the assembly is evaluated
+    at the saved tensors plus zero leaves, the partial derivatives are
+    taken by those leaves (U* held fixed), every ``autograd.grad`` builds
+    its graph, and the transpose solve is the differentiable
+    ``solve_linear``. With ``U_moves`` the saved ``U_star`` is the
+    Function's output, so the next order sees U* move with the inputs
+    through this same rule; without it (:class:`FeSolutionAt`, whose U*
+    is data) U* stays fixed. Otherwise the inputs are detached and the
+    result builds no graph."""
     prof = spec.profile
     dev = U_star.device
+    create = torch.is_grad_enabled()
     g_U, g_xi = grads[0], list(grads[1:])
     if prof is not None:
         _sync(dev)
         t0 = time.perf_counter()
     with torch.enable_grad():
-        Us = U_star.detach().requires_grad_(True)
-        Up, xps, lvs = spec.unpack([v.detach().requires_grad_(bool(n))
-                                    for v, n in zip(inputs, needs,
-                                                    strict=True)])
+        if create:
+            dU = torch.zeros_like(U_star, requires_grad=True)
+            Us = (U_star if U_moves else U_star.detach()) + dU
+            leaves = [torch.zeros_like(v, requires_grad=True) if n else None
+                      for v, n in zip(inputs, needs, strict=True)]
+            at = [v if d is None else v + d
+                  for v, d in zip(inputs, leaves, strict=True)]
+        else:
+            dU = Us = U_star.detach().requires_grad_(True)
+            at = [v.detach().requires_grad_(bool(n))
+                  for v, n in zip(inputs, needs, strict=True)]
+            leaves = [v if n else None for v, n in zip(at, needs,
+                                                       strict=True)]
+        Up, xps, lvs = spec.unpack(at)
         r, K_data, xi = _embedded_r_and_xi(spec, spec.rebuild(lvs), Us, Up,
                                            xps)
         xi_out = [xi[b] for b in spec.blocks]
-    xi_pairs = [(x, g) for x, g in zip(xi_out, g_xi, strict=True)
-                if g is not None and x.requires_grad]
-    cot_U = torch.zeros_like(U_star) if g_U is None else g_U.detach()
-    if xi_pairs:
-        (dU,) = torch.autograd.grad([x for x, _ in xi_pairs], [Us],
-                                    [g for _, g in xi_pairs],
-                                    retain_graph=True, allow_unused=True)
-        if dU is not None:
-            cot_U = cot_U + dU
-    if prof is not None:
-        _sync(dev)
-        t1 = time.perf_counter()
-    solve_stats: dict = {}
-    lam = solve_linear(K_data.detach(), spec.fe_problem, spec.fe_arrays,
-                       cot_U, spec.lss, stats=solve_stats)
-    if prof is not None:
-        _sync(dev)
-        t2 = time.perf_counter()
-    wrt = [Up, *xps.values(), *lvs]
-    idx = [i for i, v in enumerate(wrt) if v.requires_grad]
-    out: list[Tensor | None] = [None] * len(wrt)
-    if idx:
-        got = torch.autograd.grad(
-            [r, *(x for x, _ in xi_pairs)], [wrt[i] for i in idx],
-            [-lam, *(g for _, g in xi_pairs)], allow_unused=True)
-        for i, gi in zip(idx, got, strict=True):
-            out[i] = gi
+        xi_pairs = [(x, g) for x, g in zip(xi_out, g_xi, strict=True)
+                    if g is not None and x.requires_grad]
+        if g_U is None:
+            cot_U = torch.zeros_like(U_star)
+        else:
+            cot_U = g_U if create else g_U.detach()
+        if xi_pairs:
+            (d,) = torch.autograd.grad(
+                [x for x, _ in xi_pairs], [dU], [g for _, g in xi_pairs],
+                retain_graph=True, allow_unused=True, create_graph=create)
+            if d is not None:
+                cot_U = cot_U + d
+        if prof is not None:
+            _sync(dev)
+            t1 = time.perf_counter()
+        # the CG counts of this solve, and of the transpose solves a
+        # higher order makes through it, land in the profile's list
+        solve_stats = {} if prof is None else {
+            "cg_iters": prof.setdefault("cg_iters", [])}
+        lam = solve_linear(K_data if create else K_data.detach(),
+                           spec.fe_problem, spec.fe_arrays, cot_U, spec.lss,
+                           stats=solve_stats, transpose=True)
+        if prof is not None:
+            _sync(dev)
+            t2 = time.perf_counter()
+        idx = [i for i, v in enumerate(leaves) if v is not None]
+        out: list[Tensor | None] = [None] * len(inputs)
+        if idx:
+            got = torch.autograd.grad(
+                [r, *(x for x, _ in xi_pairs)], [leaves[i] for i in idx],
+                [-lam, *(g for _, g in xi_pairs)], allow_unused=True,
+                create_graph=create)
+            for i, gi in zip(idx, got, strict=True):
+                out[i] = gi
     if prof is not None:
         _sync(dev)
         t3 = time.perf_counter()
         prof["assembly_s"] = prof.get("assembly_s", 0.0) + (t1 - t0) \
             + (t3 - t2)
         prof["solve_s"] = prof.get("solve_s", 0.0) + (t2 - t1)
-        prof.setdefault("cg_iters", []).extend(solve_stats.get("cg_iters",
-                                                               []))
         prof["assemblies"] = prof.get("assemblies", 0) + 1
     return out
 
@@ -383,10 +444,21 @@ class FeNewtonSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec: _IftSpec, *inputs):
         U_prev, xi_prev, leaves = spec.unpack(inputs)
+        newton: dict = {}
         with torch.no_grad():
             U, xi = _fe_newton_primal(
                 spec.fe_problem, spec.fe_arrays, spec.rebuild(leaves),
-                U_prev, xi_prev, spec.t, spec.nls, spec.lss)
+                U_prev, xi_prev, spec.t, spec.nls, spec.lss, newton)
+        if spec.profile is not None:
+            prof = spec.profile
+            prof["newton_iters"] = prof.get("newton_iters", 0) \
+                + newton["newton_iters"]
+            prof["newton_assemblies"] = prof.get("newton_assemblies", 0) \
+                + newton["assemblies"]
+            prof.setdefault("newton_cg_iters", []).extend(
+                newton.get("cg_iters", []))
+        if U is U_prev:         # converged at the start: a new tensor
+            U = U.clone()
         ctx.spec = spec
         ctx.save_for_backward(U, *inputs)
         return (U, *(xi[b] for b in spec.blocks))
@@ -404,7 +476,7 @@ class FeSolutionAt(torch.autograd.Function):
     solution ``U_star`` (one assembly recovers xi*), with the same
     implicit-function rule as :class:`FeNewtonSolve` (the JAX package's
     ``_fe_solution_at_ad``). ``U_star`` is data: its gradient is
-    dropped."""
+    dropped, and the rule's own derivatives hold it fixed."""
 
     @staticmethod
     def forward(ctx, spec: _IftSpec, U_star: Tensor, *inputs):
@@ -420,7 +492,8 @@ class FeSolutionAt(torch.autograd.Function):
     def backward(ctx, *grads):
         U_star, *inputs = ctx.saved_tensors
         return (None, None, *_ift_backward(ctx.spec, U_star, inputs, grads,
-                                           ctx.needs_input_grad[2:]))
+                                           ctx.needs_input_grad[2:],
+                                           U_moves=False))
 
 
 def _ift_inputs(fe_problem, params_by_block, U_prev, xi_prev_by_block, t,

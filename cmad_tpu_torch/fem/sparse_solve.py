@@ -3,12 +3,20 @@
 Port of the CG arms of ``cmad_tpu/fem/sparse_solve.py`` (parity:
 reference ``cmad/fem/sparse_solve.py``):
 
-- ``scipy_lu``: host SuperLU, the f64 truth arm (the K data and the
-  right-hand side go to the host and the solution comes back);
-- ``jax_cg``: Jacobi-preconditioned CG, and ``jax_cg_two_level``: CG with
-  the aggregation two-level preconditioner (``fem/two_level.py``), both
-  with the JAX package's periodic true-residual replacement. They keep
-  the JAX package's names.
+- :func:`lu_unique`: host SuperLU, the f64 truth arm (the K data and
+  the right-hand side go to the host and the solution comes back), the
+  JAX package's ``scipy_lu``;
+- :func:`cg_unique`: Jacobi-preconditioned CG (``jax_cg``), or CG with
+  the aggregation two-level preconditioner (``fem/two_level.py``,
+  ``jax_cg_two_level``), both with the JAX package's periodic
+  true-residual replacement. Both arms take the deduplicated CSR data;
+  ``fem/nonlinear_solver.linear_solver`` picks one from the deck's
+  settings;
+- :func:`linear_solve` (:class:`LinearSolve`): ``x = K^-1 b`` through an
+  arm, differentiable in K's data and in ``b`` to any order: the backward
+  is the transpose solve through the same arm and the data's cotangent
+  ``-lambda[row] x[col]`` on the pattern (the JAX package's
+  ``custom_linear_solve`` transpose rule).
 
 Embedded-BC form: prescribed rows AND columns zeroed with the assembled
 diagonal kept at prescribed rows (block-diagonal ``K_ff | diag(K_ii)``);
@@ -50,6 +58,8 @@ from cmad_tpu_torch.ops.segment_sum import (
     csr_plan,
     make_csr_matvec,
     plan_from_sorted,
+    plan_from_target,
+    segment_gather,
     segment_sum,
 )
 from cmad_tpu_torch.typing import Tensor
@@ -70,12 +80,15 @@ class CooMatrix:
     rows: Tensor
     cols: Tensor
     row_plan: SegmentPlan
+    col_plan: SegmentPlan
     n: int
 
     def __matmul__(self, x: Tensor) -> Tensor:
         """``K x``, each row summed in column order; differentiable in
-        ``data`` and ``x``."""
-        return segment_sum(self.data * x[self.cols], self.row_plan)
+        ``data`` and ``x`` (the gather of ``x`` transposes to a segment
+        sum over ``col_plan``, the pattern's columns)."""
+        return segment_sum(self.data * segment_gather(x, self.col_plan),
+                           self.row_plan)
 
 
 # ----------------------------------------------------------------------
@@ -92,9 +105,13 @@ class EmbeddedSparsity:
     ``csr`` is the unique CSR pattern (its row pointer and columns, the
     plan ``csr_matvec`` reads), ``col_indices`` and ``rows`` the column
     and row of each unique entry; ``diag_idx`` maps each row to its
-    diagonal slot in the unique data. Tensors on the problem's device;
-    ``indptr_np``/``col_indices_np`` are host copies for the host solve
-    and the two-level setup.
+    diagonal slot in the unique data; ``col_plan`` is the segment plan of
+    the unique entries' columns (the gather ``x[col_indices]`` and its
+    transpose); ``transpose`` maps each unique entry (r, c) to the slot of
+    (c, r), so ``unique[transpose]`` is the data of the transposed matrix
+    on the same (structurally symmetric) pattern. Tensors on the
+    problem's device; ``indptr_np``/``col_indices_np`` are host copies for
+    the host solve and the two-level setup.
     """
 
     perm: Tensor
@@ -104,6 +121,8 @@ class EmbeddedSparsity:
     rows: Tensor
     diag_idx: Tensor
     csr: CsrPlan
+    col_plan: SegmentPlan
+    transpose: Tensor
     indptr_np: np.ndarray
     col_indices_np: np.ndarray
 
@@ -155,6 +174,14 @@ def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
             f"row {int(np.flatnonzero(diag_idx < 0)[0])} lacks a diagonal "
             "entry in the BC-enforced sparsity; assembly must emit a "
             "(row, row) entry per dof")
+    # (r, c) -> the slot of (c, r): sorting the entries by (col, row)
+    # lists their transposes in (row, col) order
+    transpose = np.empty(urows.shape[0], dtype=np.intp)
+    transpose[np.lexsort((urows, ucols))] = np.arange(urows.shape[0])
+    if not (np.array_equal(urows[transpose], ucols)
+            and np.array_equal(ucols[transpose], urows)):
+        raise ValueError("the BC-enforced sparsity is not structurally "
+                         "symmetric")
 
     dev = fe_problem.device
 
@@ -167,6 +194,7 @@ def build_embedded_sparsity(fe_problem: "FEProblem", rows: np.ndarray,
                                     n_assembled + n_presc, dev),
         col_indices=on(ucols), rows=on(urows), diag_idx=on(diag_idx),
         csr=csr_plan(indptr, ucols, dev),
+        col_plan=plan_from_target(ucols, n, dev), transpose=on(transpose),
         indptr_np=indptr, col_indices_np=ucols)
 
 
@@ -209,13 +237,11 @@ def _embedded_residual(R_assembled: Tensor, K: CooMatrix, U: Tensor,
 # ----------------------------------------------------------------------
 # direct solve (host)
 # ----------------------------------------------------------------------
-def scipy_lu(K_data: Tensor, sparsity: EmbeddedSparsity,
-             b: Tensor) -> Tensor:
+def lu_unique(unique: Tensor, sparsity: EmbeddedSparsity,
+              b: Tensor) -> Tensor:
     """Host sparse-direct solve (SuperLU through ``spsolve``) of the
-    embedded system, on the device of ``b``. Primal only: no derivative
-    rule (the implicit-function rule comes with ROADMAP queue 1, item
-    17)."""
-    unique, _ = _csr_operator(K_data, sparsity)
+    matrix with deduplicated CSR data ``unique``, on the device of ``b``.
+    Outside autograd; the differentiable solve is :func:`linear_solve`."""
     K = scipy.sparse.csr_matrix(
         (unique.detach().cpu().numpy(), sparsity.col_indices_np,
          sparsity.indptr_np), shape=(sparsity.n, sparsity.n))
@@ -277,27 +303,68 @@ def _cg_residual_replacement(matvec, precon, rhs: Tensor, rtol,
     return x
 
 
-def jax_cg(K_data: Tensor, sparsity: EmbeddedSparsity, b: Tensor,
-           rtol: float = 1e-10, max_iters: int | None = None,
-           stats: dict | None = None) -> Tensor:
-    """Jacobi-preconditioned CG (SPD K) with residual replacement."""
-    unique, matvec = _csr_operator(K_data, sparsity)
+def cg_unique(unique: Tensor, sparsity: EmbeddedSparsity, b: Tensor,
+              rtol: float, max_iters: int | None, stats: dict | None,
+              pattern=None) -> Tensor:
+    """CG on the deduplicated CSR data ``unique``: Jacobi-preconditioned,
+    or two-level when ``pattern`` (``fem/two_level.py``) is given. SPD K;
+    outside autograd."""
+    unique = unique.detach()
+    matvec = make_csr_matvec(sparsity.csr, unique)
     diag = unique[sparsity.diag_idx]
-    return _cg_residual_replacement(matvec, lambda x: x / diag, b, rtol,
-                                    max_iters, stats)
+    if pattern is None:
+        def precon(x):
+            return x / diag
+    else:
+        from cmad_tpu_torch.fem.two_level import (
+            make_two_level_preconditioner,
+        )
 
-
-def jax_cg_two_level(K_data: Tensor, sparsity: EmbeddedSparsity,
-                     b: Tensor, pattern, rtol: float = 1e-10,
-                     max_iters: int | None = None,
-                     stats: dict | None = None) -> Tensor:
-    """CG with the aggregation/rigid-body two-level preconditioner
-    (``fem/two_level.py``). SPD K."""
-    from cmad_tpu_torch.fem.two_level import make_two_level_preconditioner
-
-    unique, matvec = _csr_operator(K_data, sparsity)
-    diag = unique[sparsity.diag_idx]
-    precon = make_two_level_preconditioner(
-        pattern, unique, sparsity.rows, sparsity.col_indices, diag)
+        precon = make_two_level_preconditioner(
+            pattern, unique, sparsity.rows, sparsity.col_indices, diag)
     return _cg_residual_replacement(matvec, precon, b, rtol, max_iters,
                                     stats)
+
+
+# ----------------------------------------------------------------------
+# the differentiable solve
+# ----------------------------------------------------------------------
+class LinearSolve(torch.autograd.Function):
+    """``x = LinearSolve.apply(unique, b, sparsity, solve)``: ``x = K^-1
+    b`` for the matrix with deduplicated CSR data ``unique`` on the fixed
+    pattern of ``sparsity``; ``solve(unique, b)`` is the arm (direct, CG,
+    two-level CG) and runs outside autograd.
+
+    The backward is the transpose solve through the same arm, ``K^T
+    lambda = x_bar``, and the data's cotangent ``-lambda[row] x[col]`` on
+    the pattern, both written with differentiable operations (this
+    Function again, and the plans' gathers), so the solve has second
+    derivatives: the implicit-function rule's transpose solve is
+    differentiable, and a Hessian flows through it."""
+
+    @staticmethod
+    def forward(ctx, unique: Tensor, b: Tensor, sparsity: EmbeddedSparsity,
+                solve) -> Tensor:
+        x = solve(unique, b)
+        ctx.sparsity, ctx.solve = sparsity, solve
+        ctx.save_for_backward(unique, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar: Tensor):
+        unique, x = ctx.saved_tensors
+        sp = ctx.sparsity
+        lam = linear_solve(unique[sp.transpose], x_bar, sp, ctx.solve)
+        unique_bar = -(segment_gather(lam, sp.csr.rows)
+                       * segment_gather(x, sp.col_plan))
+        return unique_bar, lam, None, None
+
+
+def linear_solve(unique: Tensor, b: Tensor, sparsity: EmbeddedSparsity,
+                 solve) -> Tensor:
+    """``K^-1 b`` through ``solve(unique, b)``, differentiable in the CSR
+    data ``unique`` and in ``b`` to any order (:class:`LinearSolve`)."""
+    if torch.is_grad_enabled() and (unique.requires_grad
+                                    or b.requires_grad):
+        return LinearSolve.apply(unique, b, sparsity, solve)
+    return solve(unique, b)

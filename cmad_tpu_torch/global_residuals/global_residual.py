@@ -5,7 +5,7 @@ Port of the contract of ``cmad_tpu/global_residuals/global_residual.py``
 the residual blocks a global residual declares (equation counts,
 variable kinds, names), its near-null space, and ``for_model``, which
 binds a material model to the element-block evaluators that assembly
-calls (``fem/assembly.py``).
+calls (``fem/assembly.py``), and the nodal output fields.
 
 The JAX package also binds a generic per-integration-point weak form
 (``_bind_closed_form`` and ``_bind_coupled``: a local Newton per point
@@ -21,6 +21,7 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 
 from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
+from cmad_tpu_torch.models.var_types import VarType
 
 if TYPE_CHECKING:
     from cmad_tpu_torch.fem.mesh import Mesh
@@ -54,6 +55,18 @@ class GlobalResidual(ABC):
         """Near-null-space basis for multilevel/deflation preconditioners;
         mechanics GRs override with rigid-body modes. Default None."""
         return None
+
+    def primary_output_fields(self) -> list[tuple[str, VarType]]:
+        """``(var_name, kind)`` of each residual block: the nodal fields
+        the Exodus writer can write."""
+        return [(self.var_names[r], VarType(int(self._var_types[r])))
+                for r in range(self.num_residuals)]
+
+    def evaluate_nodal_field(self, name: str, fe_problem, fe_state,
+                             step: int) -> np.ndarray:
+        raise ValueError(
+            f"{type(self).__name__} does not implement nodal field "
+            f"{name!r}")
 
     def for_model(self, model,
                   mode: GlobalResidualMode = GlobalResidualMode.COUPLED,

@@ -92,6 +92,14 @@ class SmallDispEquilibrium(GlobalResidual):
     def near_null_space(self, mesh) -> np.ndarray:
         return rigid_body_modes(np.asarray(mesh.nodes, dtype=np.float64))
 
+    def evaluate_nodal_field(self, name, fe_problem, fe_state, step):
+        """The displacement ``u`` at the nodes, ``(n_nodes, ndims)``."""
+        if name == "u":
+            U = np.asarray(fe_state.U_at(step))
+            return U.reshape(-1, int(self._num_eqs[0]))
+        return super().evaluate_nodal_field(name, fe_problem, fe_state,
+                                            step)
+
     @classmethod
     def from_deck(cls, gr_section: dict[str, Any],
                   ndims: int) -> "SmallDispEquilibrium":

@@ -2,8 +2,8 @@
 
 Port of ``cmad_tpu/io/qoi_data.py`` (parity: reference
 ``cmad/io/qoi_data.py:31-116``): the material-point data loader and the
-FE displacement target. Reading a target from a cmad-primal Exodus
-output waits for the Exodus results reader (ROADMAP queue 1, item 18).
+FE displacement target, from ``.npy`` or a ``cmad primal`` Exodus
+output.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ def load_qoi_data(qoi_section: dict[str, Any]):
 
 
 def load_displacement_data(qoi_section: dict[str, Any]) -> np.ndarray:
-    """(num_steps, num_nodes, ndims) nodal displacement target (.npy)."""
+    """(num_steps, num_nodes, ndims) nodal displacement target; .npy or a
+    cmad-primal Exodus output."""
     path = Path(qoi_section["data_file"])
     if not path.exists():
         raise FileNotFoundError(f"qoi.data_file: file not found at {path}")
@@ -32,9 +33,13 @@ def load_displacement_data(qoi_section: dict[str, Any]) -> np.ndarray:
     if ext == ".npy":
         arr = np.load(path)
     elif ext in (".exo", ".ex2"):
-        raise NotImplementedError(
-            "qoi.data_file: reading the target from an Exodus results file "
-            "is not ported yet: ROADMAP queue 1, item 18; save it as .npy")
+        from cmad_tpu_torch.io.exodus import read_results
+        from cmad_tpu_torch.io.results import FieldSpec
+        from cmad_tpu_torch.models.var_types import VarType
+
+        results = read_results(
+            path, nodal_field_specs=[FieldSpec("u", VarType.VECTOR)])
+        arr = results.nodal["u"]
     else:
         raise ValueError(
             f"qoi.data_file: unsupported extension {ext!r}; "

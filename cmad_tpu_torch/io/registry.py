@@ -6,8 +6,9 @@ via decorators; resolution imports the conventional module of the port
 (``cmad_tpu_torch.models.<name>``, ``cmad_tpu_torch.qois.<name>``) on
 demand, so importing the io layer has no model-import side effects.
 Names are also discoverable
-without import through the schema fragments, which both packages share
-as data: ``cmad_tpu/io/schemas/<kind>/<name>.yaml``, read by path.
+without import through the schema fragments,
+``cmad_tpu_torch/io/schemas/<kind>/<name>.yaml`` (the port's copy of the
+JAX package's, file for file), read by path.
 """
 from __future__ import annotations
 
@@ -19,8 +20,7 @@ _MODEL_REGISTRY: dict[str, type] = {}
 _QOI_REGISTRY: dict[str, type] = {}
 _GLOBAL_RESIDUAL_REGISTRY: dict[str, type] = {}
 
-_SCHEMA_DIR = Path(__file__).resolve().parents[2] / "cmad_tpu" / "io" \
-    / "schemas"
+_SCHEMA_DIR = Path(__file__).resolve().parent / "schemas"
 
 
 def _register(registry: dict[str, type], name: str) -> Callable[[type], type]:
@@ -75,6 +75,10 @@ def register_qoi(name: str):
 
 def resolve_qoi(name: str) -> type:
     return _resolve(_QOI_REGISTRY, name, "cmad_tpu_torch.qois", "qoi")
+
+
+def registered_qoi_names() -> list[str]:
+    return _registered_names(_QOI_REGISTRY, "qois")
 
 
 def register_global_residual(name: str):

@@ -30,7 +30,9 @@ arrays the kernels read are int32.
   products formed inside the kernel (``coarse_pair_sum``) rather than
   materialized; the plain version is that product and :func:`segment_sum`.
 - :func:`segment_gather` — ``x[segment of entry]``, whose backward is the
-  segment sum (so the FE gathers of U transpose reproducibly too).
+  segment sum (so the FE gathers of U transpose reproducibly too). Each
+  of the two backwards calls the other's differentiable entry, so second
+  derivatives stay on the plans' kernels.
 - :func:`csr_matvec` — ``y = A x`` for a CSR matrix over a
   :class:`CsrPlan`, each row summed in column order: the segment sum of
   ``data[j] * x[cols[j]]`` over the row pointer, on the tile path (CUDA
@@ -381,6 +383,10 @@ def _segment_sum_raw(vals: Tensor, plan: SegmentPlan,
     raise ValueError(f"segment_sum: no kernel for device {vals.device}")
 
 
+# The two Functions are each other's transpose, and each backward calls
+# the other's differentiable entry: a double backward (a Hessian-vector
+# product) then sums and gathers over the same plans, through the kernels
+# on the card, which autograd cannot see inside.
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals: Tensor, plan: SegmentPlan) -> Tensor:
@@ -389,7 +395,7 @@ class _SegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out: Tensor):
-        return _gather(grad_out, ctx.plan), None
+        return segment_gather(grad_out, ctx.plan), None
 
 
 def _gather(x: Tensor, plan: SegmentPlan) -> Tensor:
@@ -410,7 +416,7 @@ class _SegmentGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out: Tensor):
-        return _segment_sum_raw(grad_out.contiguous(), ctx.plan, None), None
+        return segment_sum(grad_out.contiguous(), ctx.plan), None
 
 
 def segment_sum(vals: Tensor, plan: SegmentPlan,
@@ -421,10 +427,11 @@ def segment_sum(vals: Tensor, plan: SegmentPlan,
     (not in ``scale``)."""
     if scale is not None and scale.requires_grad:
         raise RuntimeError("segment_sum is not differentiable in scale")
+    if vals.device.type == "cuda":
+        vals = vals.contiguous()
     if scale is None and vals.requires_grad and torch.is_grad_enabled():
         return _SegmentSum.apply(vals, plan)
-    return _segment_sum_raw(vals.contiguous() if vals.device.type == "cuda"
-                            else vals, plan, scale)
+    return _segment_sum_raw(vals, plan, scale)
 
 
 def segment_gather(x: Tensor, plan: SegmentPlan) -> Tensor:

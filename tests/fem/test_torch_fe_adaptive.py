@@ -21,7 +21,7 @@ from cmad_tpu.cli.fe_subcommands import _nls_settings
 from cmad_tpu.fem.driver import (
     fe_quasistatic_drive_stepped as jax_drive_stepped,
 )
-from cmad_tpu_torch.cli.fe_common import run_primal_fe
+from cmad_tpu_torch.cli.fe_common import fe_primal_drive
 from cmad_tpu_torch.fem import nonlinear_solver
 
 from tests.support.torch_fe import jax_bundle, notch_deck, port_bundle
@@ -54,7 +54,7 @@ def drives(tmp_path_factory):
     stats: list = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nonlinear_solver, "solve_linear", recording)
-        got = run_primal_fe(port_bundle(deck), stats)
+        got = fe_primal_drive(port_bundle(deck), stats)
     return ref, got, stats, forced
 
 

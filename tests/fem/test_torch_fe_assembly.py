@@ -50,8 +50,6 @@ from cmad_tpu_torch.fem.sparse_solve import (
     _csr_operator,
     _embedded_bc_enforce,
     _embedded_residual,
-    jax_cg_two_level,
-    scipy_lu,
 )
 from cmad_tpu_torch.fem.two_level import make_two_level_preconditioner
 from cmad_tpu_torch.fem.xi_carrier import pack_xi, unpack_xi
@@ -216,7 +214,7 @@ def test_cg_matches_direct(case, precon):
     ft = case["ft"]
     sp = ft.embedded_sparsity
     rtol = 1e-10
-    x_lu = scipy_lu(Kd, sp, -r)
+    x_lu = solve_linear(Kd, ft, ft.kernel_arrays, -r, {"type": "direct"})
     stats: dict = {}
     x = solve_linear(Kd, ft, ft.kernel_arrays, -r,
                      {"type": "cg", "rtol": rtol, "max iters": None,
@@ -245,8 +243,9 @@ def test_two_level_cg_budget_is_split_over_cycles(case):
     (_, _), (r, Kd) = _enforced(case)
     ft = case["ft"]
     stats: dict = {}
-    jax_cg_two_level(Kd, ft.embedded_sparsity, -r, get_two_level_pattern(ft),
-                     rtol=1e-14, max_iters=10, stats=stats)
+    solve_linear(Kd, ft, ft.kernel_arrays, -r,
+                 {"type": "cg", "rtol": 1e-14, "max iters": 10,
+                  "preconditioner": {"type": "two_level"}}, stats=stats)
     assert stats["cg_iters"] == [8]
 
 

@@ -27,7 +27,7 @@ from cmad_tpu.cli.fe_subcommands import _nls_settings
 from cmad_tpu.fem.driver import (
     fe_quasistatic_drive_stepped as jax_drive_stepped,
 )
-from cmad_tpu_torch.cli.fe_common import nonlinear_settings, run_primal_fe
+from cmad_tpu_torch.cli.fe_common import nonlinear_settings, fe_primal_drive
 from cmad_tpu_torch.fem.driver import fe_quasistatic_drive_stepped
 from cmad_tpu_torch.fem.nonlinear_solver import solve_linear
 
@@ -51,7 +51,7 @@ def drives(tmp_path_factory):
         linear_solver_settings=bj.resolved["linear solver"])
     bt = port_bundle(deck)
     stats: list = []
-    got = run_primal_fe(bt, stats)
+    got = fe_primal_drive(bt, stats)
     return bt, ref, got, stats
 
 
@@ -106,7 +106,7 @@ def test_two_level_cg_drive_matches_direct(drives):
     deck = notch_deck(num_steps=2, global_tol=TOL, max_iters=30,
                       linear_solver=CG_TWO_LEVEL)
     stats: list = []
-    cg_state, cg_log = run_primal_fe(port_bundle(deck), stats)
+    cg_state, cg_log = fe_primal_drive(port_bundle(deck), stats)
     scale = np.abs(state.U_at(2)).max()
     assert np.abs(cg_state.U_at(2) - state.U_at(2)).max() <= 1e-9 * scale
     for s, e in zip(stats, cg_log, strict=True):
@@ -118,15 +118,15 @@ def test_two_level_cg_drive_matches_direct(drives):
 def test_iteration_cap_warns():
     bt = port_bundle(notch_deck(num_steps=1, max_iters=1))
     with pytest.warns(RuntimeWarning, match="iteration-cap"):
-        _state, log = run_primal_fe(bt)
+        _state, log = fe_primal_drive(bt)
     assert log[0]["final_residual"] > 1e-6
 
 
 def test_arms_not_ported_raise(caplog):
     deck = notch_deck(num_steps=1)
-    deck["residuals"]["global residual"]["driver"] = "scan"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_primal_fe(port_bundle(deck))
+    deck["residuals"]["global residual"]["driver"] = "host"
+    with pytest.raises(NotImplementedError, match="item 18"):
+        fe_primal_drive(port_bundle(deck))
     bt = port_bundle(notch_deck(num_steps=1))
     fe = bt.fe_problem
     K = torch.ones(fe.embedded_sparsity.perm.shape[0], dtype=torch.float64)

@@ -192,9 +192,20 @@ def test_qoi_data_loaders(tmp_path):
                                                                  **extra})
         for a, b in zip(got, ref, strict=True):
             np.testing.assert_array_equal(a, b)
-    (tmp_path / "u.exo").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        load_displacement_data({"data_file": str(tmp_path / "u.exo")})
+    from cmad_tpu.fem.mesh import StructuredHexMesh
+
+    from cmad_tpu_torch.io.exodus import ExodusWriter
+
+    mesh = StructuredHexMesh((1.0, 1.0, 1.0), (1, 1, 1))
+    w = ExodusWriter(tmp_path / "u.exo", mesh,
+                     nodal_var_names=["u_x", "u_y", "u_z"])
+    for t in (0.0, 1.0):
+        w.write_step(t, {c: rng.normal(size=8) for c in ("u_x", "u_y",
+                                                          "u_z")})
+    w.close()
+    exo = {"data_file": str(tmp_path / "u.exo")}
+    np.testing.assert_array_equal(load_displacement_data(exo),
+                                  jax_load(exo))
     with pytest.raises(FileNotFoundError):
         load_displacement_data({"data_file": str(tmp_path / "none.npy")})
 

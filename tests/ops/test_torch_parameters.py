@@ -171,7 +171,9 @@ def test_port_imports_neither_jax_nor_cmad_tpu():
     """Importing the port and every one of its modules, in a fresh
     interpreter, leaves jax and cmad_tpu out of sys.modules, and the deck
     parsers too (yaml, jsonschema, h5py: the GPU host has none of them,
-    and the FE entry point takes the deck as a dict)."""
+    and the FE entry points and commands take the deck as a dict). The
+    walk covers the ``cli``, ``io`` and ``util`` subpackages, the
+    commands and ``python -m cmad_tpu_torch``'s ``__main__``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cmad_tpu_torch\n"
@@ -183,8 +185,15 @@ def test_port_imports_neither_jax_nor_cmad_tpu():
         "('jax', 'jaxlib', 'cmad_tpu', 'yaml', 'jsonschema', 'h5py'))\n"
         "assert not bad, bad\n"
         "assert {'cmad_tpu_torch.cli.fe_common', "
-        "'cmad_tpu_torch.global_residuals.small_disp_equilibrium'} "
-        "<= set(names)\n"
+        "'cmad_tpu_torch.global_residuals.small_disp_equilibrium', "
+        "'cmad_tpu_torch.__main__', 'cmad_tpu_torch.cli.main', "
+        "'cmad_tpu_torch.cli.fe_subcommands', "
+        "'cmad_tpu_torch.cli.calibrate', "
+        "'cmad_tpu_torch.cli.common', 'cmad_tpu_torch.io.schema', "
+        "'cmad_tpu_torch.io.writers', 'cmad_tpu_torch.io.fe_writers', "
+        "'cmad_tpu_torch.io.exodus', 'cmad_tpu_torch.io.results', "
+        "'cmad_tpu_torch.io.restart', 'cmad_tpu_torch.fem.postprocess', "
+        "'cmad_tpu_torch.util.profiling'} <= set(names)\n"
         "print('imported', len([k for k in sys.modules "
         "if k.startswith('cmad_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

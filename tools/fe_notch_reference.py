@@ -26,6 +26,19 @@ dJ/dc / Y.
 
     env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
         --mesh notch_h0.015.exo --max-iters 50 --gradient
+
+``--hessian`` adds the Hessian of ``benchmarks/notch_hosford/
+hessian_scale.py``: the same truth, then Y active at 2.3 with no transform
+(so the Hessian is d2J/dY2), the same QoI, and ``cmad_tpu``'s stepped
+Hessian (``cli/fe_common.build_fe_stepped_hessian_fn``: a tangent forward
+and a tangent reverse sweep per column), with J and dJ/dY from the stepped
+gradient beside it. At 47,628 tets the Hessian takes about eight minutes
+on eight CPU cores; run it with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8`` in the environment
+(the sparse-direct solve is a host callback).
+
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.015.exo --max-iters 50 --hessian
 """
 from __future__ import annotations
 
@@ -47,6 +60,8 @@ def main() -> int:
                     help="the global Newton's iteration cap (the deck: 15)")
     ap.add_argument("--gradient", action="store_true",
                     help="also J and dJ/dY at Y = 2.6 against the truth")
+    ap.add_argument("--hessian", action="store_true",
+                    help="also d2J/dY2, J and dJ/dY at Y = 2.3")
     ap.add_argument("--weight", type=float, default=1.0e6,
                     help="the QoI's weight (calibrate_scale.py: 1e6)")
     args = ap.parse_args()
@@ -88,6 +103,9 @@ def main() -> int:
     grad = {}
     if args.gradient:
         grad = gradient_reference(deck, state, args.weight)
+    if args.hessian:
+        grad = {**grad, "hessian": hessian_reference(deck, state,
+                                                     args.weight)}
     print(json.dumps({
         **grad,
         "mesh": args.mesh, "max_iters": args.max_iters,
@@ -102,35 +120,70 @@ def main() -> int:
     return 0
 
 
-def gradient_reference(deck: dict, truth, weight: float) -> dict:
-    """J and its gradient at Y = 2.6 against the displacements of
-    ``truth`` (the drive at Y = 2.0), from cmad_tpu's stepped adjoint."""
+def _sensitivity_bundle(deck: dict, truth, weight: float, Y: dict,
+                        tmp: str):
+    """cmad_tpu's bundle of ``deck`` with the initial yield ``Y`` and
+    ``fe_displacement_match`` against the displacements of ``truth``."""
     import copy
 
     import numpy as np
     import yaml
 
-    from cmad_tpu.cli.fe_common import (
-        build_fe_problem_from_deck,
-        build_fe_stepped_vg,
-    )
+    from cmad_tpu.cli.fe_common import build_fe_problem_from_deck
 
     deck = copy.deepcopy(deck)
     deck["residuals"]["local residual"]["materials"]["block_1"]["plastic"][
-        "flow stress"]["initial yield"] = {
-            "Y": {"value": 2.6, "active": True, "transform": {"log": 2.0}}}
+        "flow stress"]["initial yield"] = {"Y": Y}
     data = np.stack(truth.U_history).reshape(len(truth.U_history), -1, 3)
+    np.save(Path(tmp) / "u_data.npy", data)
+    deck["qoi"] = {"name": "fe_displacement_match",
+                   "data_file": str(Path(tmp) / "u_data.npy"),
+                   "weight": weight}
+    path = Path(tmp) / "deck.yaml"
+    path.write_text(yaml.safe_dump(deck, sort_keys=False))
+    return build_fe_problem_from_deck(path, "hessian")
+
+
+def hessian_reference(deck: dict, truth, weight: float) -> dict:
+    """d2J/dY2, J and dJ/dY at Y = 2.3 (no transform) against the
+    displacements of ``truth``, from cmad_tpu's stepped Hessian and
+    stepped gradient."""
+    import numpy as np
+
+    from cmad_tpu.cli.fe_common import (
+        build_fe_stepped_hessian_fn,
+        build_fe_stepped_vg,
+    )
+
     with tempfile.TemporaryDirectory() as tmp:
-        np.save(Path(tmp) / "u_data.npy", data)
-        deck["qoi"] = {"name": "fe_displacement_match",
-                       "data_file": str(Path(tmp) / "u_data.npy"),
-                       "weight": weight}
-        path = Path(tmp) / "deck.yaml"
-        path.write_text(yaml.safe_dump(deck, sort_keys=False))
-        bundle = build_fe_problem_from_deck(path, "gradient")
-    p0, state_init, ts, vg = build_fe_stepped_vg(bundle)
-    t0 = time.perf_counter()
-    J, g = vg(p0, state_init, ts)
+        bundle = _sensitivity_bundle(deck, truth, weight,
+                                     {"value": 2.3, "active": True}, tmp)
+        p0, state_init, ts, hess = build_fe_stepped_hessian_fn(bundle)
+        t0 = time.perf_counter()
+        H, max_asym = hess(p0, state_init, ts)
+        hessian_s = time.perf_counter() - t0
+        _p, _s, _ts, vg = build_fe_stepped_vg(bundle)
+        J, g = vg(p0, state_init, ts)
+    return {"Y": 2.3, "Y_truth": 2.0, "weight": weight,
+            "H": np.asarray(H).tolist(), "max_asym": float(max_asym),
+            "J": float(J), "dJ_dY": float(np.asarray(g)[0]),
+            "hessian_s": hessian_s}
+
+
+def gradient_reference(deck: dict, truth, weight: float) -> dict:
+    """J and its gradient at Y = 2.6 against the displacements of
+    ``truth`` (the drive at Y = 2.0), from cmad_tpu's stepped adjoint."""
+    import numpy as np
+
+    from cmad_tpu.cli.fe_common import build_fe_stepped_vg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = _sensitivity_bundle(
+            deck, truth, weight, {"value": 2.6, "active": True,
+                                  "transform": {"log": 2.0}}, tmp)
+        p0, state_init, ts, vg = build_fe_stepped_vg(bundle)
+        t0 = time.perf_counter()
+        J, g = vg(p0, state_init, ts)
     return {"Y": 2.6, "Y_truth": 2.0, "weight": weight, "J": float(J),
             "dJ_dc": float(g[0]), "dJ_dY": float(g[0]) / 2.6,
             "canonical_c": float(np.asarray(p0)[0]),

@@ -24,6 +24,12 @@ reproducible). Run from the root of a checkout on a machine with an
 NVIDIA GPU:
 
     python3 tools/torch_fe_profile.py --mesh notch_h0.015.exo
+
+``--hessian`` traces one evaluation of the stepped Hessian of
+``chip_smoke.py``'s fe-hessian instead (the drive above at Y = 2.0 is the
+truth; d2J/dY2 at Y = 2.3, ``fe_displacement_match`` at weight 1e6, the
+same solver), after an untraced one: the same report for the whole
+evaluation, with its primal, tangent and reverse sweeps' wall seconds.
 """
 from __future__ import annotations
 
@@ -80,15 +86,18 @@ def main() -> int:
     ap.add_argument("--mesh", default="notch_h0.015.exo")
     ap.add_argument("--steps", type=int, default=4,
                     help="trace the last of this many steps")
+    ap.add_argument("--hessian", action="store_true",
+                    help="trace one stepped Hessian evaluation instead")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_fe_profile: no CUDA device")
     sys.path.insert(0, str(REPO))
-    from chip_smoke import FE_RECORDS, notch_deck
+    from chip_smoke import FE_RECORDS, hess_deck, notch_deck
     from cmad_tpu_torch.cli.fe_common import (
         build_fe_problem_from_deck,
         nonlinear_settings,
@@ -106,28 +115,52 @@ def main() -> int:
     nls = nonlinear_settings(bundle)
     lss = bundle.resolved["linear solver"]
     ts = bundle.t_schedule.tolist()
-    state, _ = fe_quasistatic_drive_stepped(fe, ts[:-1], nls, lss)
-    k = len(ts) - 2
+    if args.hessian:
+        from cmad_tpu_torch.cli.fe_common import build_fe_stepped_hessian_fn
 
-    def last_step(stats=None):
-        return fe_quasistatic_drive_stepped(
-            fe, ts[-2:], nls, lss, U_init=state.U_at(k),
-            xi_init_by_block={"block_1": state.xi_at(k, "block_1")},
-            stats=stats)
+        state, _ = fe_quasistatic_drive_stepped(fe, ts, nls, lss)
+        truth = REPO / "build" / "torch_fe_profile" / "u_truth.npy"
+        truth.parent.mkdir(parents=True, exist_ok=True)
+        np.save(truth, np.stack(state.U_history).reshape(
+            len(state.U_history), -1, 3))
+        hbundle = build_fe_problem_from_deck(hess_deck(args.mesh,
+                                                       FE_RECORDS, truth))
+        p0, s0, hts, hess = build_fe_stepped_hessian_fn(hbundle)
+
+        def work(stats: list) -> None:
+            """One Hessian evaluation; its sweeps' walls and counts."""
+            sweeps: dict = {}
+            hess(p0, s0, hts, sweeps)
+            stats.append({
+                "newton_iters": sum(f["newton_iters"]
+                                    for f in sweeps["forward"]),
+                "cg_iters": [sum(r["cg_iters"]) for r in sweeps["reverse"]],
+                "sweeps_s": {w: sum(x["wall_s"] for x in sweeps[w])
+                             for w in ("forward", "tangent", "reverse")}})
+    else:
+        state, _ = fe_quasistatic_drive_stepped(fe, ts[:-1], nls, lss)
+        k = len(ts) - 2
+
+        def work(stats: list) -> None:
+            """The last step from the drive's state before it."""
+            fe_quasistatic_drive_stepped(
+                fe, ts[-2:], nls, lss, U_init=state.U_at(k),
+                xi_init_by_block={"block_1": state.xi_at(k, "block_1")},
+                stats=stats)
 
     # the same step untraced, first: it warms the caches and gives the
     # wall time without the tracer's host overhead
     torch.cuda.synchronize()
     plain_stats: list = []
     t0 = time.perf_counter()
-    last_step(plain_stats)
+    work(plain_stats)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     stats: list = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        last_step(stats)
+        work(stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -148,16 +181,24 @@ def main() -> int:
         launches += 1
     device_s = sum(by_family.values()) * 1e-6
     print(card)
-    print(f"{args.mesh}: step {len(ts) - 1} of {len(ts) - 1}, wall "
-          f"{wall:.4f} s, {stats[0]['newton_iters']} Newton iterations, "
-          f"{stats[0]['assemblies']} assemblies, CG iterations "
-          f"{stats[0].get('cg_iters')}")
+    if args.hessian:
+        print(f"{args.mesh}: one stepped Hessian evaluation, wall "
+              f"{wall:.4f} s, sweeps {stats[0]['sweeps_s']}, "
+              f"{stats[0]['newton_iters']} Newton iterations in the "
+              f"primal sweep, the reverse steps' transpose-solve CG "
+              f"iterations {stats[0]['cg_iters']}")
+    else:
+        print(f"{args.mesh}: step {len(ts) - 1} of {len(ts) - 1}, wall "
+              f"{wall:.4f} s, {stats[0]['newton_iters']} Newton "
+              f"iterations, {stats[0]['assemblies']} assemblies, CG "
+              f"iterations {stats[0].get('cg_iters')}")
     same = (plain_stats[0]["newton_iters"] == stats[0]["newton_iters"]
             and plain_stats[0].get("cg_iters") == stats[0].get("cg_iters"))
+    what = "evaluation" if args.hessian else "step"
     print(f"device kernels {launches}, device time {device_s:.4f} s = busy "
           f"{device_s / wall:.1%}, idle {1 - device_s / wall:.1%} of the "
-          f"traced step's wall time")
-    print(f"untraced, the same step: wall {plain_wall:.4f} s, "
+          f"traced {what}'s wall time")
+    print(f"untraced, the same {what}: wall {plain_wall:.4f} s, "
           f"{plain_stats[0]['newton_iters']} Newton iterations, CG "
           f"iterations {plain_stats[0].get('cg_iters')}; the traced "
           f"device time is {device_s / plain_wall:.1%} of it (the same "

@@ -746,7 +746,7 @@ def notch_drives(sums: dict, report: dict, out: Path) -> None:
     from cmad_tpu_torch.cli.fe_common import (
         build_fe_problem_from_deck,
         build_fe_stepped_vg,
-        run_primal_fe,
+        fe_primal_drive,
     )
     from cmad_tpu_torch.ops import segment_sum as ss
 
@@ -794,7 +794,7 @@ def notch_drives(sums: dict, report: dict, out: Path) -> None:
                 if phase == "drive":
                     stats: list = []
                     (state, _log), wall = timed(
-                        lambda stats=stats: run_primal_fe(bundle, stats))
+                        lambda stats=stats: fe_primal_drive(bundle, stats))
                     truth = state if truth is None else truth
                     rec = {"U": np.stack(state.U_history), "wall_s": wall,
                            "newton_iters": [s["newton_iters"]

@@ -61,7 +61,7 @@ def main() -> int:
     from cmad_tpu_torch.cli.fe_common import (
         build_fe_problem_from_deck,
         nonlinear_settings,
-        run_primal_fe,
+        fe_primal_drive,
     )
     from cmad_tpu_torch.ops import j2_soa_ad
     from cmad_tpu_torch.ops.j2_radial_return import soa_step_scalars
@@ -139,7 +139,7 @@ def main() -> int:
 
         j2_soa_ad.soa_step_scalars_cuda = hooked
         try:
-            state, log = run_primal_fe(bundle, stats)
+            state, log = fe_primal_drive(bundle, stats)
             torch.cuda.synchronize()
         finally:
             j2_soa_ad.soa_step_scalars_cuda = k1["this"]
