@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive cmad_tpu_torch's J2+Voce return-map path once on one NVIDIA GPU.
+"""Drive cmad_tpu_torch's J2+Voce return-map path and the Hosford notch
+deck once on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -83,7 +84,25 @@ the built library's SASS counts them). The paths driven:
 - the roofline experiment (``ops/roofline.py``): the f32 history at
   2,097,152 points x 16 steps, Newton iterations 1-12 at 8 steps a
   launch and 1-16 steps a launch at 8 iterations, each row against the
-  plain drive.
+  plain drive;
+- the Hosford path (``examples/notch_hosford.yaml`` as written: Hosford
+  with a = 100, the total form): the reduced 4-dof Newton through
+  ``make_batched_return_map(model, specialize=True)`` at 1,048,576 points
+  x 2 steps against the generic 7-dof Newton (mp-hosford); the deck as
+  written through the ``primal`` command at 480 tets with its Exodus
+  output, against the library drive bit for bit (and, on the J2 deck,
+  ``fe_load_match`` in write mode and one ``objective`` for each of
+  ``fe_displacement_l2``, ``fe_load_match`` and ``fe_weighted_sum``; in
+  fe-cli); at 480 tets, the load in two steps, Newton at 1e-12, the card
+  (the point-batch block, CG at 1e-10) against the CPU, and the stepped
+  gradient and Hessian against central differences and the scan Hessian
+  (fe-hosford-small); at 47,628 tets with the records' solver and Newton
+  cap 50 the primal against cmad_tpu's CPU f64 ||U|| and max |alpha|,
+  its last two steps again, bit for bit, with the local Newton's
+  iterations per step and an assembly's host and device time, and one
+  gradient against cmad_tpu's (fe-hosford). No TPU kernel lies on this
+  path: it runs the segment sums and ``csr_matvec``, and never
+  ``j2_soa_step``.
 
 Before the paths, ``j2_soa_step`` is held to its plain version at
 1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
@@ -103,8 +122,11 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -344,16 +366,81 @@ HESS_SMALL_RTOL, HESS_SMALL_FD_RTOL, HESS_JDOT_RTOL = 1e-7, 1e-5, 1e-8
 # benchmarks/notch_hosford/calibrate_scale_480_tpu.json, context only)
 CAL_Y_RTOL = 1e-3
 CAL_TPU_RECORD = (1.999789, 30)
+# the Hosford notch (examples/notch_hosford.yaml as written: a = 100, the
+# total form): cmad_tpu on the CPU in f64 with sparse-direct solves, the
+# stepped driver, Newton cap 50 (tools/fe_notch_reference.py --mesh
+# notch_h0.015.exo --max-iters 50 --effective-stress hosford --gradient,
+# jax 0.9.0; the drive took 1284 s and the gradient 1012 s on the CPU
+# host): ||U|| and max |alpha| after each step, and J and dJ/dc of the
+# notch calibration at Y = 2.6 (GRAD_Y) against the drive at Y = 2.0
+FE_HOSFORD_REF_U_NORMS = (0.7867706196622157, 1.5136325048601345,
+                          2.0870794364606446, 2.653241683812782)
+FE_HOSFORD_REF_ALPHA_MAX = (0.06548113765968518, 0.11197884642607306,
+                            0.14088400008567625, 0.1662051122245803)
+FE_HOSFORD_GRAD_REF_J = 1.2474083586164162
+FE_HOSFORD_GRAD_REF_DJ_DC = 9.079995240406618
+# the at-scale records' final ||U|| (benchmarks/notch_hosford/
+# scale_ours_47628_two_level_stepped.json: TPU, f32; scale_reference_47628
+# .json: the original cmad on a host CPU, f64, SuperLU), printed beside
+# ours as context, not as a gate
+HOSFORD_TPU_RECORD_U = 2.653198003768921
+HOSFORD_REFERENCE_U = 2.6531950649818503
+# fe-hosford-small (480 tets, Newton 1e-12, CG at 1e-10) card vs CPU
+# (plain path, direct): both Newtons converge to 1e-12 from the same
+# start, so U agrees to about that over K's conditioning (2.3e-14 at the
+# deck's 1e-8 in a first run on an H100)
+HOSFORD_SMALL_BOUND = 1e-9
+# mp-hosford: the reduced return map on the benchmark's material with the
+# deck's Hosford (a = 100) at 1,048,576 points x 2 steps, each Newton
+# capped at MP_HOSFORD_ITERS (the benchmark's increments; at 65,536
+# points on the CPU the slowest point took 23)
+MP_HOSFORD_ITERS = 100
+HOSFORD_MATERIAL = {**MATERIAL, "plastic": {
+    **MATERIAL["plastic"], "effective stress": {"hosford": {"a": 100.0}}}}
+# examples/notch_hosford.yaml as written, as a dict (the GPU host has no
+# PyYAML); tests/cli/test_torch_cli.py holds it equal to the file
+NOTCH_HOSFORD_DECK = {
+    "problem": {"type": "fe", "name": "notch_hosford"},
+    "discretization": {"mesh file": "meshes/notch_h0.080.exo",
+                       "build coordinate sidesets": True,
+                       "num steps": 4, "step size": 1.0},
+    "residuals": {
+        "global residual": {
+            "type": "small_disp_equilibrium", "def_type": "full_3d",
+            "nonlinear max iters": 15, "nonlinear absolute tol": 1.0e-8,
+            "nonlinear relative tol": 1.0e-8},
+        "local residual": {
+            "type": "small_elastic_plastic", "nonlinear max iters": 500,
+            "nonlinear absolute tol": 1.0e-12,
+            "nonlinear relative tol": 1.0e-12,
+            "line search": {"max evals": 100},
+            "materials": {"block_1": {
+                "elastic": {"E": 1000.0, "nu": 0.25},
+                "plastic": {
+                    "effective stress": {"hosford": {"a": 100.0}},
+                    "flow stress": {
+                        "initial yield": {"Y": 2.0},
+                        "hardening": {"voce": {"S": 10.0, "D": 2.0}}}}}}}},
+    "dirichlet bcs": {"expression": {
+        "sym_x": ["equilibrium", 0, "xmin_sides", "0.0"],
+        "sym_y": ["equilibrium", 1, "ymin_sides", "0.0"],
+        "sym_z": ["equilibrium", 2, "zmin_sides", "0.0"],
+        "load_y": ["equilibrium", 1, "ymax_sides", "0.01 * t"]}},
+    "output": {"path": "results", "exodus filename": "notch_primal.exo",
+               "global residual": ["u"],
+               "local residual": {"block_1": ["cauchy", "alpha"]}},
+}
 SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
 # R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
 ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
 
 
-def grad_deck(mesh: str, solver: dict, data_file, tol=None) -> dict:
+def grad_deck(mesh: str, solver: dict, data_file, tol=None,
+              effective_stress: str = "J2") -> dict:
     """The notch deck at Y = GRAD_Y, Y active under the log transform
     about GRAD_Y_TRUTH, with fe_displacement_match against ``data_file``
     (:func:`save_displacements`)."""
-    deck = notch_deck(mesh, solver)
+    deck = notch_deck(mesh, solver, effective_stress)
     deck["residuals"]["local residual"]["materials"]["block_1"][
         "plastic"]["flow stress"]["initial yield"] = {
             "Y": {"value": GRAD_Y, "active": True,
@@ -367,10 +454,10 @@ def grad_deck(mesh: str, solver: dict, data_file, tol=None) -> dict:
 
 
 def hess_deck(mesh: str, solver: dict, data_file, tol=None,
-              driver: str = "stepped") -> dict:
+              driver: str = "stepped", effective_stress: str = "J2") -> dict:
     """:func:`grad_deck` with Y = HESS_Y active and no transform (the
     Hessian in Y), through ``driver``."""
-    deck = grad_deck(mesh, solver, data_file, tol)
+    deck = grad_deck(mesh, solver, data_file, tol, effective_stress)
     deck["residuals"]["local residual"]["materials"]["block_1"][
         "plastic"]["flow stress"]["initial yield"] = {
             "Y": {"value": HESS_Y, "active": True}}
@@ -387,8 +474,12 @@ def save_displacements(state, path: Path) -> Path:
     return path
 
 
-def notch_deck(mesh: str, solver: dict) -> dict:
-    """The notch deck with J2 on ``mesh`` (a file of examples/meshes)."""
+def notch_deck(mesh: str, solver: dict, effective_stress: str = "J2"
+               ) -> dict:
+    """The notch deck on ``mesh`` (a file of examples/meshes) with the
+    effective stress ``"J2"`` (swapped in) or ``"hosford"`` (the deck's,
+    a = 100)."""
+    es = {"J2": {"J2": {}}, "hosford": {"hosford": {"a": 100.0}}}
     return {
         "problem": {"type": "fe", "name": "notch_hosford"},
         "discretization": {"mesh file": str(MESHES / mesh),
@@ -409,7 +500,7 @@ def notch_deck(mesh: str, solver: dict) -> dict:
                 "materials": {"block_1": {
                     "elastic": {"E": 1000.0, "nu": 0.25},
                     "plastic": {
-                        "effective stress": {"J2": {}},
+                        "effective stress": es[effective_stress],
                         "flow stress": {
                             "initial yield": {"Y": 2.0},
                             "hardening": {"voce": {"S": 10.0,
@@ -1377,9 +1468,91 @@ def main() -> int:
                        f"err {rel:.3e} (rtol {MP_GRAD_RTOL:g})")
     if not (bool(torch.isfinite(got).all()) and rel <= MP_GRAD_RTOL):
         raise RuntimeError("mp-gradient: gradients disagree")
-    del model, g, z, x0, w, grads, mp_g
+    del model, g, z, x0, w, grads
     sync()
     lap("mp-gradient")
+
+    # ---------------- 12. mp-hosford ----------------
+    # the reduced 4-dof Hosford Newton through make_batched_return_map
+    # (specialize=True) on the benchmark's material with the deck's
+    # Hosford (a = 100), the benchmark's increments over 2 chained steps,
+    # against the generic 7-dof Newton on the same model; each point's
+    # iterations from the same reduced solve with its log on
+    from cmad_tpu_torch.ops.hosford_return import (
+        make_hosford_strain_solve,
+        strain_rows,
+    )
+    model = SmallElasticPlastic(Parameters(HOSFORD_MATERIAL, dtype=dt))
+    pv = model.parameters.values
+    g = mp_g[dt][:N_GENERIC].contiguous()
+    z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+        aos_zero(N_GENERIC, dt)
+    reduced = make_batched_return_map(model, max_iters=MP_HOSFORD_ITERS,
+                                      specialize=True)
+    generic = make_batched_return_map(model, max_iters=MP_HOSFORD_ITERS)
+
+    def two_steps(step):
+        xi1, s1 = step(x0, g, z, pv)
+        xi2, s2 = step(xi1, g2, g, pv)
+        return xi1, s1, xi2, s2
+
+    def timed_two_steps(step):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = two_steps(step)
+        sync()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    with torch.no_grad():
+        two_steps(reduced)           # the first call's one-time costs
+        red_out, red_s, red_peak = timed_two_steps(reduced)
+        gen_out, gen_s, gen_peak = timed_two_steps(generic)
+        solve = make_hosford_strain_solve(model, max_iters=MP_HOSFORD_ITERS)
+
+        def fields(gu):
+            return GlobalFieldsAtPoint({"u": gu.new_zeros(gu.shape[:-1])},
+                                       {"u": gu})
+
+        iters = [solve.iterations(xi_p, pv, strain_rows(
+            "total", fields(gu), fields(gu_p)))
+            for xi_p, gu, gu_p in ((x0, g, z), (red_out[0], g2, g))]
+    capped = [int((it >= MP_HOSFORD_ITERS).sum()) for it in iters]
+    done = (iters[0] < MP_HOSFORD_ITERS) & (iters[1] < MP_HOSFORD_ITERS)
+    worst = {name: float((a - b).abs()[done].max())
+             for name, a, b in zip(("xi1", "sigma1", "xi2", "sigma2"),
+                                   red_out, gen_out, strict=True)}
+    mu = float(j2_voce_scalars(pv, dt)[0])
+    red_atol = GENERIC_TOL_FACTOR * 2.0 * mu * newton_tols("mp_local", dt)[0]
+    plastic = [int((red_out[0][:, 6] > 0).sum()),
+               int((red_out[2][:, 6] > red_out[0][:, 6]).sum())]
+    it_mean = [round(float(it.double().mean()), 4) for it in iters]
+    say("mp-hosford", f"float64 N={N_GENERIC} x 2 steps, a = 100, at most "
+                      f"{MP_HOSFORD_ITERS} Newton iterations: reduced "
+                      f"{red_s * 1e3:.1f} ms = "
+                      f"{2 * N_GENERIC / red_s:.4g} updates/s (host clock "
+                      f"around synchronized work), peak memory "
+                      f"{red_peak / 2**30:.2f} GiB; generic 7-dof "
+                      f"{gen_s * 1e3:.1f} ms = "
+                      f"{2 * N_GENERIC / gen_s:.4g} updates/s, peak "
+                      f"{gen_peak / 2**30:.2f} GiB; plastic points per step "
+                      f"{plastic}; most iterations of a point "
+                      f"{[int(it.max()) for it in iters]} (mean "
+                      f"{it_mean}), points at the cap {capped}; max "
+                      f"|reduced - "
+                      f"generic| over the points that converged "
+                      f"{ {k: f'{v:.3e}' for k, v in worst.items()} } "
+                      f"(sigma atol {red_atol:.3g} = {GENERIC_TOL_FACTOR:g} "
+                      f"x 2 mu x abs_tol)")
+    if not (all(bool(torch.isfinite(t).all()) for t in red_out)
+            and worst["sigma1"] <= red_atol and worst["sigma2"] <= red_atol
+            and min(plastic) > 0 and int(done.sum()) > 0):
+        raise RuntimeError("mp-hosford: the reduced and generic Newtons "
+                           "disagree")
+    del model, g, z, g2, x0, red_out, gen_out, iters, done, mp_g
+    sync()
+    torch.cuda.empty_cache()
+    lap("mp-hosford")
 
     # ---------------- the FE J2 primal and gradient on the notch ---------
     from cmad_tpu_torch.cli import fe_subcommands as fs
@@ -1425,15 +1598,18 @@ def main() -> int:
     def read_counts():
         return {**cuda_rr.launch_counts(), **segsum.launch_counts()}
 
-    def fe_drive(phase, bundle):
+    def fe_drive(phase, bundle, k1_per_assembly=1, **resume):
         """The deck's primal from its bundle with the kernels' launches
         counted from 0: (state, log, per-step stats, launches, peak
-        bytes)."""
+        bytes). The J2 block launches j2_soa_step once per assembly; the
+        point-batch block (Hosford, ``k1_per_assembly=0``) never.
+        ``resume`` (``t_schedule``, ``U_init``, ``xi_init_by_block``)
+        drives the rest of the schedule from a stored state."""
         sync()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         stats: list = []
-        state, log = fe_primal_drive(bundle, stats)
+        state, log = fe_primal_drive(bundle, stats, **resume)
         sync()
         k1 = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1442,7 +1618,8 @@ def main() -> int:
                    f"implied by the Newton and line-search iterations "
                    f"(each Newton start, each probe, each step's residual "
                    f"pair) {implied}; all kernels {k1}")
-        if k1["j2_soa_step"] != implied or implied < len(stats) \
+        if k1["j2_soa_step"] != k1_per_assembly * implied \
+                or implied < len(stats) \
                 or not all(k1[k] for k in ("segment_sum_tile",
                                            "segment_sum_block",
                                            "coarse_pair_sum", "csr_matvec")):
@@ -2273,6 +2450,99 @@ def main() -> int:
     Y_fit = fit["block_1.plastic.flow_stress.initial_yield.Y"]
     x0, vg_c = fs.fe_value_and_grad(build_fe_problem_from_deck(cdeck))
     checks["calibrate's first J"] = hist[0]["J"] == vg_c(x0)[0]
+    # examples/notch_hosford.yaml as written (480 tets, the deck's Newton
+    # cap, the default direct solve, Exodus with u, cauchy and alpha), from
+    # a copy of its directory: the primal's file against the library drive
+    # and the Cauchy stress the writer evaluates, bit for bit; then
+    # fe_load_match in write mode (the y reaction on ymax_sides after each
+    # step) and one objective for each of fe_displacement_l2,
+    # fe_load_match (against 1.1 x that reaction) and fe_weighted_sum of
+    # the two, each J.json against the QoI summed over one library drive
+    from cmad_tpu_torch.fem.postprocess import evaluate_cauchy_at_ips
+    from cmad_tpu_torch.io.results import ip_average_to_element
+
+    ex = cli / "examples"
+    (ex / "meshes").mkdir(parents=True, exist_ok=True)
+    shutil.copy(MESHES / FE_SMALL_MESH, ex / "meshes" / FE_SMALL_MESH)
+    here = Path.cwd()
+    os.chdir(ex)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        fs.run_primal_fe(copy.deepcopy(NOTCH_HOSFORD_DECK))
+        sync()
+        cli_t["primal (notch_hosford.yaml)"] = time.perf_counter() - t0
+        exo = read_results(ex / "results" / "notch_primal.exo")
+        hbundle = build_fe_problem_from_deck(
+            copy.deepcopy(NOTCH_HOSFORD_DECK))
+        h_state, h_log = fe_primal_drive(hbundle)
+        n_t = len(h_state.t_history)
+        geom = hbundle.fe_problem.geometry_cache
+
+        def per_elem(per_ip):
+            """The writer's integration-weighted IP mean per element."""
+            return ip_average_to_element(per_ip, geom, "block_1")
+
+        cauchy = np.stack([per_elem(evaluate_cauchy_at_ips(
+            hbundle.fe_problem, h_state, k, "block_1"))
+            for k in range(n_t)])
+        order = ("xx", "xy", "xz", "yy", "yz", "zz")
+        checks["notch_hosford.yaml primal u"] = np.array_equal(
+            np.stack([np.stack([exo.nodal[f"u_{c}"][k] for c in "xyz"],
+                               axis=1).reshape(-1) for k in range(n_t)]),
+            np.stack([h_state.U_at(k) for k in range(n_t)]))
+        checks["notch_hosford.yaml primal alpha"] = np.array_equal(
+            exo.element["alpha"]["block_1"],
+            np.stack([per_elem(h_state.xi_at(k, "block_1")[..., 6:7])[:, 0]
+                      for k in range(n_t)]))
+        checks["notch_hosford.yaml primal cauchy"] = all(
+            np.array_equal(exo.element[f"cauchy_{c}"]["block_1"],
+                           cauchy[..., i]) for i, c in enumerate(order))
+        hos_alpha = float(exo.element["alpha"]["block_1"][-1].max())
+    finally:
+        os.chdir(here)
+    # the three QoIs through the commands on fe-cli's J2 deck: the QoIs do
+    # not depend on the material model, and a J2 command takes half a
+    # second where a Hosford one takes 15-25 (the local Newton)
+    series = cli / "reaction.csv"
+    write = notch_deck(FE_SMALL_MESH, FE_RECORDS)
+    write["qoi"] = {"name": "fe_load_match", "sideset": "ymax_sides",
+                    "components": [1], "output_file": str(series)}
+    write["output"] = {"write exodus": False}
+    command("primal", fs.run_primal_fe, write, "reaction")
+    reaction = np.loadtxt(series, delimiter=",")
+    np.save(cli / "reaction.npy", 1.1 * reaction.reshape(-1, 1))
+    load = {"name": "fe_load_match", "sideset": "ymax_sides",
+            "components": [1], "data_file": str(cli / "reaction.npy")}
+    qois = {"fe_displacement_l2": {"name": "fe_displacement_l2"},
+            "fe_load_match": load,
+            "fe_weighted_sum": {"name": "fe_weighted_sum", "terms": [
+                {"name": "fe_displacement_l2", "term_weight": 2.0},
+                {**load, "term_weight": 0.5}]}}
+    j2_state, _j2_log = fe_primal_drive(build_fe_problem_from_deck(
+        notch_deck(FE_SMALL_MESH, FE_RECORDS)))
+    qoi_J = {}
+    for name, section in qois.items():
+        deck = notch_deck(FE_SMALL_MESH, FE_RECORDS)
+        deck["qoi"] = section
+        deck["output"] = {"write exodus": False}
+        J_f = json.loads((command("objective", fs.run_objective_fe, deck,
+                                  f"objective_{name}") / "J.json")
+                         .read_text())["J"]
+        qb = build_fe_problem_from_deck(deck)
+        lib = fs.accumulate_qoi_over_history(qb, j2_state, qb.qoi)
+        checks[f"objective {name}"] = J_f == lib
+        qoi_J[name] = J_f
+    checks["reaction written after every step"] = (
+        reaction.shape == (5,) and reaction[0] == 0.0
+        and bool(np.all(np.diff(reaction) > 0.0)))
+    h_norms = [float(np.linalg.norm(h_state.U_at(k))) for k in range(1, n_t)]
+    say("fe-cli", f"examples/notch_hosford.yaml (480 tets, Hosford a = 100)"
+                  f": ||U|| per step {h_norms}"
+                  f", max alpha {hos_alpha!r}, Newton {h_log}; on the "
+                  f"J2 deck the ymax_sides y reaction per step "
+                  f"{reaction.tolist()}, J per QoI {qoi_J}")
+    del hbundle, h_state, j2_state
     cli_counts = read_counts()
     say("fe-cli", f"calibrate from Y {GRAD_Y}: Y {Y_fit!r} after "
                   f"{len(hist)} evaluations ({status['nit']} iterations, "
@@ -2291,6 +2561,262 @@ def main() -> int:
         raise RuntimeError(f"fe-cli: {checks}, Y {Y_fit}, launches "
                            f"{cli_counts}")
     lap("fe-cli")
+
+    # ---------------- fe-hosford-small ----------------
+    # the deck's Hosford (a = 100) on 480 tets, its load in two steps, at
+    # a Newton tolerance of 1e-12: the card (the point-batch block, cg +
+    # two_level at 1e-10) against the CPU (the plain path, direct solves);
+    # then, against that drive's U, d2J/dY2 at Y = HESS_Y (no transform)
+    # from the stepped Hessian, against a central difference of the card's
+    # gradient (whose J's central difference checks the gradient) and the
+    # scan Hessian
+    def two_steps(deck):
+        """The deck's load in two steps of twice the size (t = 2, 4): the
+        depth cut that holds this phase's time."""
+        deck["discretization"].update({"num steps": 2, "step size": 2.0})
+        return deck
+
+    hos = two_steps(notch_deck(FE_SMALL_MESH, FE_CG_TIGHT, "hosford"))
+    hos["residuals"]["global residual"].update(
+        {"nonlinear absolute tol": GRAD_SMALL_TOL,
+         "nonlinear relative tol": GRAD_SMALL_TOL})
+    hb = build_fe_problem_from_deck(hos)
+    t0 = time.perf_counter()
+    gpu_h, _log_h, _st_h, small_counts, _pk = fe_drive(
+        "fe-hosford-small", hb, k1_per_assembly=0)
+    card_s = time.perf_counter() - t0
+    cb = build_fe_problem_from_deck(
+        {**copy.deepcopy(hos), "linear solver": dict(FE_DIRECT)},
+        device="cpu")
+    t0 = time.perf_counter()
+    cpu_h, cpu_log = fe_primal_drive(cb)
+    cpu_s = time.perf_counter() - t0
+    if not fe_converged(cpu_log, nonlinear_settings(cb)):
+        raise RuntimeError("fe-hosford-small: the CPU drive did not "
+                           "converge")
+    U_gpu, U_cpu = np.stack(gpu_h.U_history), np.stack(cpu_h.U_history)
+    small_rel = float(np.abs(U_gpu - U_cpu).max() / np.abs(U_cpu).max())
+    small_norms = [float(np.linalg.norm(u)) for u in gpu_h.U_history[1:]]
+    say("fe-hosford-small", f"480 tets x 2 steps (t = 2, 4), Newton tol "
+                            f"{GRAD_SMALL_TOL:g}: card (point-batch block, "
+                            f"cg + two_level 1e-10) {card_s:.3f} s vs CPU "
+                            f"(plain path, direct) {cpu_s:.3f} s: "
+                            f"max|U_gpu - U_cpu| / max|U_cpu| "
+                            f"{small_rel:.3e} (bound {HOSFORD_SMALL_BOUND:g});"
+                            f" ||U|| per step {small_norms}")
+    if not small_rel <= HOSFORD_SMALL_BOUND:
+        raise RuntimeError("fe-hosford-small: card and CPU disagree")
+    truth_hs = save_truth(gpu_h, "u_truth_hosford_480.npy")
+    del hb, cb, gpu_h, cpu_h
+    hb = build_fe_problem_from_deck(two_steps(hess_deck(
+        FE_SMALL_MESH, FE_CG_TIGHT, truth_hs, GRAD_SMALL_TOL,
+        effective_stress="hosford")))
+    p0, s0, ts, hess = build_fe_stepped_hessian_fn(hb)
+    t0 = time.perf_counter()
+    J_h, g_h, H_h, asym_h = hess.with_gradient(p0, s0, ts)
+    hess_s = time.perf_counter() - t0
+    g_h, H_h = float(g_h[0]), float(H_h[0, 0])
+    _q, _s, _t, vg = build_fe_stepped_vg(hb)
+    Jp, gp = vg(p0 + GRAD_SMALL_H, s0, ts)
+    Jm, gm = vg(p0 - GRAD_SMALL_H, s0, ts)
+    fd_g = (Jp - Jm) / (2 * GRAD_SMALL_H)
+    fd_H = (float(gp[0]) - float(gm[0])) / (2 * GRAD_SMALL_H)
+    t0 = time.perf_counter()
+    H_scan = float(fs.fe_hessian(build_fe_problem_from_deck(two_steps(
+        hess_deck(FE_SMALL_MESH, FE_CG_TIGHT, truth_hs, GRAD_SMALL_TOL,
+                  driver="scan", effective_stress="hosford"))))[0][0, 0])
+    scan_s = time.perf_counter() - t0
+    rel = {"grad": abs(g_h - fd_g) / abs(fd_g),
+           "fd": abs(H_h - fd_H) / abs(fd_H),
+           "scan": abs(H_scan - H_h) / abs(H_h)}
+    say("fe-hosford-small", f"Y {HESS_Y}: J {J_h!r}, dJ/dY {g_h!r}, central "
+                            f"difference of J at h = {GRAD_SMALL_H:g} "
+                            f"{fd_g!r}: rel diff {rel['grad']:.3e} (bound "
+                            f"{GRAD_FD_RTOL:g}); stepped d2J/dY2 {H_h!r} "
+                            f"({hess_s:.3f} s, max_asym {asym_h:.3e}); "
+                            f"central difference of the card's gradient "
+                            f"{fd_H!r}: rel diff {rel['fd']:.3e} (bound "
+                            f"{HESS_SMALL_FD_RTOL:g}); scan Hessian "
+                            f"{H_scan!r} ({scan_s:.3f} s): rel diff "
+                            f"{rel['scan']:.3e} (bound {HESS_SMALL_RTOL:g})")
+    if not (rel["grad"] <= GRAD_FD_RTOL and rel["fd"] <= HESS_SMALL_FD_RTOL
+            and rel["scan"] <= HESS_SMALL_RTOL and g_h != 0.0
+            and H_h > 0.0):
+        raise RuntimeError("fe-hosford-small: the derivatives miss their "
+                           "bounds")
+    del hb, hess, vg
+    lap("fe-hosford-small")
+
+    # ---------------- fe-hosford (this slice's main path) ----------------
+    # examples/notch_hosford.yaml's Hosford at the records' size (47,628
+    # tets) with the records' solver and Newton cap 50: the primal against
+    # cmad_tpu's ||U|| and max |alpha| per step, its last two steps again
+    # bit for bit; the local Newton's iterations per step; an assembly's
+    # host and device time; then one gradient of the notch calibration
+    # against cmad_tpu's
+    t0 = time.perf_counter()
+    bundle = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS,
+                                                   "hosford"))
+    fe = bundle.fe_problem
+    say("fe-hosford", f"{FE_MESH}: {fe.mesh.connectivity.shape[0]} tets, "
+                      f"{fe.dof_map.num_total_dofs} dofs, the point-batch "
+                      f"block (reduced Hosford Newton); problem built in "
+                      f"{time.perf_counter() - t0:.2f} s (host)")
+    local = fe.evaluators_by_block["block_1"]["local_solve"].newton
+    local.log = []
+    t0 = time.perf_counter()
+    state, log, stats, hos_counts, peak = fe_drive("fe-hosford", bundle,
+                                                   k1_per_assembly=0)
+    drive_s = time.perf_counter() - t0
+    solves, local.log = local.log, None
+    first = 0
+    for k, st in enumerate(stats, start=1):
+        mine = solves[first:first + st["assemblies"]]
+        first += st["assemblies"]
+        mean = sum(float(m[1]) for m in mine) / sum(m[2] for m in mine)
+        say("fe-hosford", f"step {k}: local Newton (one per assembly, "
+                          f"{len(mine)}): most iterations of a point "
+                          f"{max(m[0] for m in mine)}, mean {mean:.4f}"
+                          f" per point per assembly, slowest point's "
+                          f"iterations per assembly {[m[0] for m in mine]}")
+    if first != len(solves):
+        raise RuntimeError(f"fe-hosford: {len(solves)} local solves for "
+                           f"{first} assemblies")
+    norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
+    alphas = [float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
+              for k in range(1, len(state.U_history))]
+    worst = max(max(abs(a - b) / b for a, b in zip(
+        norms, FE_HOSFORD_REF_U_NORMS, strict=True)), max(
+        abs(a - b) / b for a, b in zip(alphas, FE_HOSFORD_REF_ALPHA_MAX,
+                                       strict=True)))
+    say("fe-hosford", f"4 steps in {drive_s:.3f} s ({drive_s / 4:.3f} s per "
+                      f"step), peak memory {peak / 2**30:.3f} GiB; ||U|| per "
+                      f"step {norms}, max |alpha| {alphas}; against "
+                      f"cmad_tpu (CPU f64, direct, Newton cap 50) "
+                      f"{list(FE_HOSFORD_REF_U_NORMS)}, "
+                      f"{list(FE_HOSFORD_REF_ALPHA_MAX)}: max rel err "
+                      f"{worst:.3e} (bound {FE_REF_RTOL:g}); the records' "
+                      f"final ||U|| (context only, the deck's Newton cap "
+                      f"15): TPU f32 {HOSFORD_TPU_RECORD_U!r}, the "
+                      f"original cmad f64 {HOSFORD_REFERENCE_U!r}")
+    if not worst <= FE_REF_RTOL:
+        raise RuntimeError("fe-hosford: the drive misses cmad_tpu's answer")
+    # one assembly at the last step (the point-batch block, the COO dedup,
+    # the embedded-BC pair): host clock around synchronized work, best of
+    # 2, and its kernels' device time from one traced call
+    from torch.profiler import ProfilerActivity, profile
+
+    ka, params = fe.kernel_arrays, params_by_block_from_models(fe)
+    t = float(state.t_history[-1])
+    U_prev = torch.as_tensor(state.U_at(3), dtype=fe.dtype, device=dev)
+    U = torch.as_tensor(state.U_at(4), dtype=fe.dtype, device=dev)
+    xi_prev = {"block_1": torch.as_tensor(state.xi_at(3, "block_1"),
+                                          dtype=fe.dtype, device=dev)}
+
+    def assemble():
+        K, R, _xi = assemble_global(fe, ka, params, U, U_prev, t,
+                                    xi_prev_by_block=xi_prev)
+        K_data, K_ii = _embedded_bc_enforce(K, ka.prescribed_indices)
+        return K_data, K_ii, R
+
+    with torch.no_grad():
+        host = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            assemble()
+            sync()
+            host.append(time.perf_counter() - t0)
+        local.log = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            assemble()
+            sync()
+        asm_iters, local.log = local.log[0][0], None
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    asm_dev = sum(ev.time_range.elapsed_us() for ev in kernels) * 1e-3
+    asm_host = min(host) * 1e3
+    say("fe-hosford", f"one point-batch assembly at step 4 ({asm_iters} "
+                      f"local iterations of the slowest point): host "
+                      f"{asm_host:.2f} ms (best of 2, "
+                      f"{[round(h * 1e3, 2) for h in host]}), device "
+                      f"{asm_dev:.2f} ms in {len(kernels)} kernels "
+                      f"(traced), so the device is busy "
+                      f"{asm_dev / asm_host:.1%} of it")
+    # the drive again from its own state at t = 2 (steps 3 and 4; step 1
+    # alone takes 60-65% of a drive): bit for bit the same U, xi, Newton
+    # path and CG counts
+    state2, _log2, stats2, _c2, _p2 = fe_drive(
+        "fe-hosford", bundle, k1_per_assembly=0,
+        t_schedule=state.t_history[2:], U_init=state.U_at(2),
+        xi_init_by_block={"block_1": state.xi_at(2, "block_1")})
+    paths = [[s["newton_iters"] for s in st] for st in (stats[2:], stats2)]
+    cgs = [[s.get("cg_iters", []) for s in st] for st in (stats[2:], stats2)]
+    same_U = np.array_equal(np.stack(state.U_history[2:]),
+                            np.stack(state2.U_history))
+    same_xi = all(np.array_equal(state.xi_at(k, "block_1"),
+                                 state2.xi_at(k - 2, "block_1"))
+                  for k in (3, 4))
+    say("fe-hosford", f"steps 3-4 again from the drive's state at t = 2: "
+                      f"Newton iterations per step {paths[0]} and "
+                      f"{paths[1]}; CG iterations equal: {cgs[0] == cgs[1]};"
+                      f" U bit-identical: {same_U}; xi bit-identical: "
+                      f"{same_xi}")
+    if not (same_U and same_xi and paths[0] == paths[1]
+            and cgs[0] == cgs[1]):
+        raise RuntimeError("fe-hosford: the repeated steps differ")
+    truth_h = save_truth(state, "u_truth_hosford_47628.npy")
+    del bundle, fe, state, state2, U, U_prev, xi_prev, prof
+    sync()
+    torch.cuda.empty_cache()
+    gbundle = build_fe_problem_from_deck(grad_deck(
+        FE_MESH, FE_RECORDS, truth_h, effective_stress="hosford"))
+    p0, s0, ts, vg = build_fe_stepped_vg(gbundle)
+    gstats: dict = {}
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    J, g = vg(p0, s0, ts, stats=gstats)
+    sync()
+    hgrad_s = time.perf_counter() - t0
+    hgrad_counts = read_counts()
+    ref_rel = (abs(J - FE_HOSFORD_GRAD_REF_J) / abs(FE_HOSFORD_GRAD_REF_J),
+               abs(float(g[0]) - FE_HOSFORD_GRAD_REF_DJ_DC)
+               / abs(FE_HOSFORD_GRAD_REF_DJ_DC))
+    fwd, rev = gstats["forward"], gstats["reverse"]
+    say("fe-hosford", f"gradient at Y {GRAD_Y} (log transform about "
+                      f"{GRAD_Y_TRUTH}), the records' solver: J {J!r}, "
+                      f"dJ/dc {float(g[0])!r}; cmad_tpu (CPU f64, direct) "
+                      f"J {FE_HOSFORD_GRAD_REF_J!r}, dJ/dc "
+                      f"{FE_HOSFORD_GRAD_REF_DJ_DC!r}: rel diff J "
+                      f"{ref_rel[0]:.3e} (bound {FE_GRAD_J_RTOL:g}), dJ/dc "
+                      f"{ref_rel[1]:.3e} (bound {FE_GRAD_G_RTOL:g}); "
+                      f"{hgrad_s:.3f} s (forward "
+                      f"{sum(f['wall_s'] for f in fwd):.3f} s: Newton "
+                      f"{[f['newton_iters'] for f in fwd]}, assemblies "
+                      f"{[f['assemblies'] for f in fwd]}; reverse "
+                      f"{sum(r['wall_s'] for r in rev):.3f} s: the rule's "
+                      f"assemblies {sum(r['assembly_s'] for r in rev):.3f} "
+                      f"s, transpose solves "
+                      f"{sum(r['solve_s'] for r in rev):.3f} s); launches "
+                      f"{hgrad_counts}")
+    say("fe-hosford", f"launches on this path: the primal {hos_counts}, the "
+                      f"gradient {hgrad_counts}")
+    if not (np.isfinite(J) and float(g[0]) != 0.0
+            and ref_rel[0] <= FE_GRAD_J_RTOL
+            and ref_rel[1] <= FE_GRAD_G_RTOL):
+        raise RuntimeError("fe-hosford: the gradient misses cmad_tpu's")
+    if hgrad_counts["j2_soa_step"] != 0 or not all(
+            hgrad_counts[k] > 0 for k in ("segment_sum_tile",
+                                          "segment_sum_block",
+                                          "coarse_pair_sum", "csr_matvec")):
+        raise RuntimeError(f"fe-hosford: the gradient's launches "
+                           f"{hgrad_counts}")
+    del gbundle, vg
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-hosford")
 
     # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
@@ -2371,12 +2897,17 @@ def main() -> int:
                  "j2_aos_step": mp_launches["j2_aos_step"],
                  "j2_total_step": mp_launches["j2_total_step"],
                  "j2_soa_history_iters": r_launches, **fe_main}
+    # the Hosford path (fe-hosford's primal and gradient at 47,628 tets)
+    # runs the FE kernels but not j2_soa_step
+    hosford_path = {k: hos_counts.get(k, 0) + hgrad_counts.get(k, 0)
+                    for k in main_path}
     say("launches", f"main paths (fe-grad + fe-hessian; history-drive; "
                     f"mp-batched; roofline): {main_path}; fe-grad "
                     f"{grad_counts}; fe-hessian {hess_counts}; fe-notch's "
                     f"primal launched "
                     f"{fe_counts}; fe-dispatch launched j2_soa_step "
-                    f"{launches['j2_soa_step']} times")
+                    f"{launches['j2_soa_step']} times; the Hosford path "
+                    f"(fe-hosford's primal + gradient) {hosford_path}")
     if not all(v > 0 for v in main_path.values()):
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
 
@@ -2450,7 +2981,9 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-         "launches": main_path[kname], "max_abs_err": err, "ms": ms,
+         "launches": main_path[kname],
+         "hosford_launches": hosford_path[kname], "max_abs_err": err,
+         "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],
          "bound_by": bounds[kname][1], "library_ms": lib, "cold_ms": cold,
          "plain_cold_ms": plain_cold, "library_cold_ms": lib_cold}

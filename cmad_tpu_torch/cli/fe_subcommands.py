@@ -139,17 +139,23 @@ def run_primal_fe(deck: Deck, out_dir=None, *,
                   dtype: torch.dtype = config.DEFAULT_DTYPE,
                   device=config.DEFAULT_DEVICE) -> int:
     """``cmad primal``: the drive, then ``solver.json``, the Exodus
-    trajectory, ``restart.npz`` when asked, ``deck.resolved.yaml`` and
-    ``J.json`` when the deck has a QoI."""
+    trajectory, ``restart.npz`` when asked, ``deck.resolved.yaml``, and
+    ``J.json`` when the deck has a QoI, or the QoI's own file for one
+    that writes a primal output (``fe_load_match`` with an
+    ``output_file``)."""
     from cmad_tpu_torch.util.profiling import maybe_trace
 
     bundle = _bundle(deck, "primal", out_dir, dtype, device)
+    qoi = bundle.qoi
+    write_qoi = qoi if qoi is not None and qoi.produces_primal_output() \
+        else None
     t_schedule, U_init, xi_init = _resolve_restart(bundle)
     with maybe_trace(bundle.resolved):
         state, solver_log = fe_primal_drive(bundle, None, t_schedule,
                                             U_init, xi_init)
-        J = accumulate_qoi_over_history(bundle, state, bundle.qoi,
-                                        t_schedule)
+        J = accumulate_qoi_over_history(
+            bundle, state, None if write_qoi is not None else qoi,
+            t_schedule)
 
     if "output" not in bundle.resolved:
         return 0
@@ -173,7 +179,9 @@ def run_primal_fe(deck: Deck, out_dir=None, *,
         write_fe_exodus(out, prefix, bundle.fe_problem, state, plan,
                         output["exodus filename"])
     write_resolved_deck(out, prefix, bundle.resolved)
-    if bundle.qoi is not None:
+    if write_qoi is not None:
+        write_qoi.write_primal_outputs(bundle.fe_problem, state)
+    elif qoi is not None:
         write_J(out, prefix, float(J))
     return 0
 

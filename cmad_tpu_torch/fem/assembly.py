@@ -2,8 +2,8 @@
 
 Port of the block path of ``cmad_tpu/fem/assembly.py`` (parity:
 reference ``cmad/fem/assembly.py``). A COUPLED block whose evaluators
-carry ``block_R_and_K_and_xi`` / ``block_R`` (``fem/j2_block.py``)
-evaluates the whole element block in one batched call; its element
+carry ``block_R_and_K_and_xi`` / ``block_R`` (``fem/j2_block.py``,
+``fem/coupled_block.py``) evaluates the whole element block in one batched call; its element
 residuals scatter into the global vector and its element matrices stream
 out in the ``(block, r, s)`` COO emit order, deduplicated into the pattern
 of :func:`assembled_coo_pattern`. That function rebuilds the identical
@@ -17,8 +17,9 @@ kernel) as on the CPU (``index_add_``), so R and K are the same bits from
 run to run, and the reverse sweep's transposes are too.
 
 The generic per-IP assembly (nested per-element and per-IP evaluation
-for CLOSED_FORM and non-J2 COUPLED blocks) is not ported yet (ROADMAP
-queue 1, items 11 and 19); neither are Neumann loads (item 8).
+for CLOSED_FORM blocks and the COUPLED blocks neither block path takes)
+is not ported yet (ROADMAP queue 1, items 11 and 19); neither are
+Neumann loads (item 8).
 """
 from __future__ import annotations
 
@@ -90,9 +91,9 @@ def _block_evaluators(fe_problem, block_name, xi_prev_per_block):
     if fe_problem.modes_by_block[block_name] != GlobalResidualMode.COUPLED \
             or "block_R" not in evaluators:
         raise NotImplementedError(
-            f"block {block_name!r}: only the COUPLED J2 block path is "
-            "ported (fem/j2_block.py); the generic per-IP assembly waits "
-            "for ROADMAP queue 1, items 11 and 19")
+            f"block {block_name!r}: only the COUPLED block paths are "
+            "ported (fem/j2_block.py, fem/coupled_block.py); the generic "
+            "per-IP assembly waits for ROADMAP queue 1, items 11 and 19")
     if xi_prev_per_block is None:
         raise ValueError(
             f"COUPLED block {block_name!r} requires xi_prev_per_block")

@@ -66,6 +66,26 @@ class GlobalDofMap:
         nd = int(self.num_dofs_per_basis_fn[f])
         return f, local // nd, local % nd
 
+    def dirichlet_eqs_for_component(self, sideset: str, field: str,
+                                    component: int) -> np.ndarray:
+        """Global eqs of (field, component) prescribed on ``sideset``,
+        sorted and unique: where the load-matching QoI reads its
+        reaction."""
+        cols = []
+        for rbc in self.resolved_bcs:
+            bc = rbc.bc
+            if (sideset in bc.sideset_names and bc.field_name == field
+                    and component in bc.dofs):
+                dofs = list(bc.dofs)
+                n_set = rbc.eq_indices.shape[0] // len(dofs)
+                cols.append(rbc.eq_indices.reshape(n_set, len(dofs))[
+                    :, dofs.index(component)])
+        if not cols:
+            raise ValueError(
+                f"no Dirichlet BC prescribes component {component} of "
+                f"field {field!r} on sideset {sideset!r}")
+        return np.unique(np.concatenate(cols))
+
     def evaluate_prescribed_values(self, dbc_arrays: DBCArrays,
                                    t: float = 0.0) -> np.ndarray:
         """Prescribed values at the host time ``t`` (float64, numpy).

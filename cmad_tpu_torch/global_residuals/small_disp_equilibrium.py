@@ -4,15 +4,14 @@ Port of the displacement form of
 ``cmad_tpu/global_residuals/small_disp_equilibrium.py`` (parity:
 reference ``cmad/global_residuals/small_disp_equilibrium.py``): one
 block, ``u``, with ``R[a, i] = grad_N_phys[a, j] sigma[j, i] w dv``,
-assembled by the J2 block evaluators (``fem/j2_block.py``). The
-near-null space is the rigid-body basis, computed directly from node
-coordinates.
+assembled by the J2 block evaluators (``fem/j2_block.py``) for J2+Voce
+and by the point-batch block (``fem/coupled_block.py``) for the other
+small-strain elastic-plastic models. The near-null space is the
+rigid-body basis, computed directly from node coordinates.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that brings them: the mixed u-p form (item 22), the per-point
-weak form for models the J2 block does not take (CLOSED_FORM elastic
-models, item 11; the point-batch block of ``fem/coupled_block.py`` and
-the Hosford, principal and Hill reductions, items 19 and 21).
+item that brings them: the mixed u-p form (item 22) and the per-point
+weak form (CLOSED_FORM elastic models, items 11 and 19).
 """
 from __future__ import annotations
 
@@ -67,27 +66,35 @@ class SmallDispEquilibrium(GlobalResidual):
                   local_newton_settings=None,
                   print_local_convergence=False) -> dict:
         """The J2 block evaluators (``fem/j2_block.py``) when the
-        model and mode admit them; anything else raises, naming the
-        ROADMAP item that ports it. ``local_newton_settings`` does not
-        reach the J2 block: its radial return runs a fixed number of
-        scalar Newton iterations."""
+        model and mode admit them, else the point-batch block
+        (``fem/coupled_block.py``); anything else raises, naming the
+        ROADMAP item that ports it. ``local_newton_settings`` reaches the
+        point-batch block's local Newton, not the J2 block: its radial
+        return runs a fixed number of scalar Newton iterations."""
+        from cmad_tpu_torch.fem.coupled_block import (
+            make_pointbatch_block_kernels,
+            pointbatch_applicable,
+        )
         from cmad_tpu_torch.fem.j2_block import (
             j2_block_applicable,
             make_j2_block_kernels,
         )
         if j2_block_applicable(self, model, mode, print_local_convergence):
             return make_j2_block_kernels(model)
+        if pointbatch_applicable(self, model, mode, print_local_convergence):
+            return make_pointbatch_block_kernels(model,
+                                                 local_newton_settings)
         if mode == GlobalResidualMode.CLOSED_FORM:
             raise NotImplementedError(
                 f"CLOSED_FORM binding of {type(model).__name__}: the "
                 "per-point weak form is not ported yet (ROADMAP queue 1, "
-                "item 11)")
+                "items 11 and 19)")
         raise NotImplementedError(
             f"COUPLED binding of {type(model).__name__} outside the J2 "
-            "block (a non-J2+Voce model, a rotated material, or per-point "
-            "convergence printing): the point-batch block and the "
-            "generic per-point Newton are not ported yet (ROADMAP queue "
-            "1, items 11, 19 and 21)")
+            "and point-batch blocks (another model family or def type, "
+            "or per-point convergence printing): the generic per-point "
+            "weak form is not ported yet (ROADMAP queue 1, items 11 and "
+            "19)")
 
     def near_null_space(self, mesh) -> np.ndarray:
         return rigid_body_modes(np.asarray(mesh.nodes, dtype=np.float64))

@@ -1,9 +1,9 @@
 """QoI data/weight loaders.
 
 Port of ``cmad_tpu/io/qoi_data.py`` (parity: reference
-``cmad/io/qoi_data.py:31-116``): the material-point data loader and the
+``cmad/io/qoi_data.py:31-116``): the material-point data loader, the
 FE displacement target, from ``.npy`` or a ``cmad primal`` Exodus
-output.
+output, and the FE load series.
 """
 from __future__ import annotations
 
@@ -44,6 +44,24 @@ def load_displacement_data(qoi_section: dict[str, Any]) -> np.ndarray:
         raise ValueError(
             f"qoi.data_file: unsupported extension {ext!r}; "
             f"supported: .npy, .exo, .ex2")
+    return np.asarray(arr, dtype=np.float64)
+
+
+def load_reaction_data(qoi_section: dict[str, Any]) -> np.ndarray:
+    """(num_steps,) or (num_steps, num_components) load series; .npy,
+    .csv or .txt."""
+    path = Path(qoi_section["data_file"])
+    if not path.exists():
+        raise FileNotFoundError(f"qoi.data_file: file not found at {path}")
+    ext = path.suffix.lower()
+    if ext == ".npy":
+        arr = np.load(path)
+    elif ext in (".csv", ".txt"):
+        arr = np.loadtxt(path)
+    else:
+        raise ValueError(
+            f"qoi.data_file: unsupported extension {ext!r}; "
+            f"supported: .npy, .csv, .txt")
     return np.asarray(arr, dtype=np.float64)
 
 

@@ -8,7 +8,10 @@ demand, so importing the io layer has no model-import side effects.
 Names are also discoverable
 without import through the schema fragments,
 ``cmad_tpu_torch/io/schemas/<kind>/<name>.yaml`` (the port's copy of the
-JAX package's, file for file), read by path.
+JAX package's, file for file), read by path. A name with a fragment but
+no module in the port yet raises ``NotImplementedError`` naming the
+ROADMAP item that ports it (``_NOT_PORTED``); a name with neither raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,14 @@ _GLOBAL_RESIDUAL_REGISTRY: dict[str, type] = {}
 
 _SCHEMA_DIR = Path(__file__).resolve().parent / "schemas"
 
+# (schema subdirectory, name) -> the ROADMAP queue 1 item that ports it,
+# for every name the schema copy advertises whose module the port lacks
+_NOT_PORTED = {
+    ("models", "elastic"): 19,
+    ("qois", "calibration"): 23,
+    ("qois", "uniaxial_calibration"): 23,
+}
+
 
 def _register(registry: dict[str, type], name: str) -> Callable[[type], type]:
     def deco(cls: type) -> type:
@@ -31,12 +42,18 @@ def _register(registry: dict[str, type], name: str) -> Callable[[type], type]:
 
 
 def _resolve(registry: dict[str, type], name: str, package: str,
-             kind: str) -> type:
+             kind: str, subdir: str) -> type:
     if name not in registry:
         module = f"{package}.{name}"
         try:
             importlib.import_module(module)
         except ImportError as e:
+            if (getattr(e, "name", None) == module
+                    and (_SCHEMA_DIR / subdir / f"{name}.yaml").is_file()):
+                raise NotImplementedError(
+                    f"{kind} {name!r} is in the schema but not ported "
+                    f"yet: ROADMAP queue 1, item "
+                    f"{_NOT_PORTED[(subdir, name)]}") from e
             raise KeyError(
                 f"no registered {kind} named {name!r} "
                 f"(import of {module} failed: {e})") from e
@@ -62,7 +79,8 @@ def register_model(name: str):
 
 
 def resolve_model(name: str) -> type:
-    return _resolve(_MODEL_REGISTRY, name, "cmad_tpu_torch.models", "model")
+    return _resolve(_MODEL_REGISTRY, name, "cmad_tpu_torch.models", "model",
+                    "models")
 
 
 def registered_model_names() -> list[str]:
@@ -74,7 +92,7 @@ def register_qoi(name: str):
 
 
 def resolve_qoi(name: str) -> type:
-    return _resolve(_QOI_REGISTRY, name, "cmad_tpu_torch.qois", "qoi")
+    return _resolve(_QOI_REGISTRY, name, "cmad_tpu_torch.qois", "qoi", "qois")
 
 
 def registered_qoi_names() -> list[str]:
@@ -87,7 +105,8 @@ def register_global_residual(name: str):
 
 def resolve_global_residual(name: str) -> type:
     return _resolve(_GLOBAL_RESIDUAL_REGISTRY, name,
-                    "cmad_tpu_torch.global_residuals", "global residual")
+                    "cmad_tpu_torch.global_residuals", "global residual",
+                    "global_residuals")
 
 
 def registered_global_residual_names() -> list[str]:

@@ -60,6 +60,9 @@ class _Newton:
         self.ls = {**DEFAULT_LINE_SEARCH_SETTINGS,
                    **(line_search_settings or {})}
         self.print = print_local_convergence
+        # when a list, each call appends (iterations of its slowest point,
+        # the sum of every point's iterations as a 0-d tensor, points)
+        self.log: list | None = None
 
     def tols(self, dtype: torch.dtype) -> tuple[float, float]:
         d_abs, d_rel = config.newton_tols("mp_local", dtype)
@@ -74,11 +77,13 @@ class _Newton:
         r = self.r_b(x, *args)
         norm0 = torch.linalg.vector_norm(r, dim=-1)
         iters = torch.zeros(x.shape[:1], dtype=torch.int64, device=x.device)
+        done = 0
         for k in range(self.max_iters):
             norm = torch.linalg.vector_norm(r, dim=-1)
             live = ~((norm < abs_tol) | (norm / norm0 < rel_tol))
             if not bool(live.any()):
                 break
+            done = k + 1
             if self.print:
                 print(f"  ({k + 1}) abs ||C|| = {float(norm.max()):.6e} "
                       f"rel ||C|| = {float((norm / norm0).max()):.6e}")
@@ -90,10 +95,16 @@ class _Newton:
                 return 0.5 * (r_trial * r_trial).sum(-1), None, r_trial
 
             rr = (r * r).sum(-1)
-            alpha, r_next = line_search(probe, 0.5 * rr, -rr, self.ls, r)
+            # a converged point's step is discarded: it must not keep
+            # the search going (in the JAX package's vmapped loop it did,
+            # with the same result for every point)
+            alpha, r_next = line_search(probe, 0.5 * rr, -rr, self.ls, r,
+                                        active=live)
             x = torch.where(live[:, None], x - alpha[:, None] * dx, x)
             r = torch.where(live[:, None], r_next, r)
             iters = iters + live
+        if self.log is not None:
+            self.log.append((done, iters.sum(), int(iters.shape[0])))
         return x, iters, torch.linalg.vector_norm(r, dim=-1)
 
 
@@ -122,7 +133,9 @@ class _ImplicitSolve(torch.autograd.Function):
     @staticmethod
     def forward(x0, newton, spec, *leaves):
         x, _iters, _norm = newton(x0, spec(leaves))
-        return x
+        # a batch converged at its guess returns the guess itself, which
+        # autograd may not save as an output
+        return x.clone() if x is x0 else x
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -205,6 +218,69 @@ def make_newton_solve(
         return x[0] if single else x
 
     return solve
+
+
+class StrainLocalSolve:
+    """A material point's local problem with the strain as an explicit
+    input, solved over a batch of points, and its strain tangent.
+
+    ``residual(x, x_prev, params, g6)`` is one point's residual in its
+    unknowns ``x`` (n,), where ``g6`` holds the symmetric strain rows
+    [xx, xy, xz, yy, yz, zz] the model reads (the increment in the rate
+    form, the total strain in the total form); ``reduce(xi_prev)`` picks
+    the unknowns' previous values out of one point's state, which also
+    seed the Newton, and ``expand(x, xi_prev, params, g6)`` rebuilds the
+    state. Calls are batched: ``xi_prev`` (B, nxi), ``g6`` (B, 6) and
+    ``params`` shared by every point. The parameters, the previous state
+    and the strain are each inputs of the implicit solve
+    (:class:`_ImplicitSolve`), never captured, so gradients reach all
+    three. ``newton.log``, when set to a list, records each solve's
+    iterations (:class:`_Newton`).
+    """
+
+    def __init__(self, residual, reduce, expand, max_iters: int = 10,
+                 abs_tol: float | None = None, rel_tol: float | None = None,
+                 line_search_settings: dict[str, Any] | None = None):
+        self.residual, self.reduce, self.expand = residual, reduce, expand
+        self.newton = _Newton(residual, (0, None, 0), max_iters, abs_tol,
+                              rel_tol, line_search_settings)
+        self._reduce_b = vmap(reduce)
+        self._expand_b = vmap(expand, in_dims=(0, 0, None, 0))
+        self._dr_dg_b = vmap(jacfwd(residual, argnums=3),
+                             in_dims=(0, 0, None, 0))
+
+    def unknowns(self, xi_prev: Tensor, params, g6: Tensor
+                 ) -> tuple[Tensor, Tensor]:
+        """``(x*, x_prev)``, each (B, n): the converged unknowns and
+        their previous values."""
+        x_prev = self._reduce_b(xi_prev)
+        spec = _Args((x_prev, params, g6))
+        return _ImplicitSolve.apply(x_prev, self.newton, spec,
+                                    *spec.tensors), x_prev
+
+    def state(self, x: Tensor, xi_prev: Tensor, params, g6: Tensor
+              ) -> Tensor:
+        """The states (B, nxi) of the unknowns ``x``."""
+        return self._expand_b(x, xi_prev, params, g6)
+
+    def __call__(self, xi_prev: Tensor, params, g6: Tensor) -> Tensor:
+        x, _x_prev = self.unknowns(xi_prev, params, g6)
+        return self.state(x, xi_prev, params, g6)
+
+    def iterations(self, xi_prev: Tensor, params, g6: Tensor) -> Tensor:
+        """Each point's Newton iterations (B,), for diagnostics: the same
+        solve, primal only."""
+        x_prev = self._reduce_b(xi_prev)
+        with torch.no_grad():
+            return self.newton(x_prev, (x_prev, params, g6))[1]
+
+    def strain_tangent(self, x: Tensor, x_prev: Tensor, params,
+                       g6: Tensor) -> Tensor:
+        """``dx*/dg6`` (B, n, 6) at converged unknowns by the
+        implicit-function rule, ``-(dr/dx)^-1 dr/dg6``: one batched solve
+        with six right-hand sides, in differentiable ops."""
+        A = self.newton.j_b(x, x_prev, params, g6)
+        return -torch.linalg.solve(A, self._dr_dg_b(x, x_prev, params, g6))
 
 
 def make_newton_solve_with_stats(

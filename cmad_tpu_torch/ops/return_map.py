@@ -26,6 +26,10 @@ from cmad_tpu_torch.ops.cuda_radial_return import (
     soa_history_cuda,
     soa_step_scalars_cuda,
 )
+from cmad_tpu_torch.ops.hosford_return import (
+    hosford_reducible,
+    make_hosford_local_solve,
+)
 from cmad_tpu_torch.ops.j2_radial_return import (
     j2_voce_scalars,
     make_j2_radial_return,
@@ -35,12 +39,12 @@ from cmad_tpu_torch.ops.j2_radial_return import (
 from cmad_tpu_torch.typing import Tensor
 
 
-def j2_voce_kind(model) -> str | None:
-    """``"rate"`` / ``"total"`` when ``model`` is a J2+Voce FULL_3D
-    elastic-plastic model (default constitutive funs, fixed identity
-    material rotation) — the exact cases the analytic radial returns
-    reproduce to the Newton tolerance; ``None`` otherwise. The rotation
-    must be the identity when the map is built: specialization keys on
+def elastic_plastic_kind(model, effective_stress: str) -> str | None:
+    """``"rate"`` / ``"total"`` when ``model`` is a small-strain
+    elastic-plastic model with the default constitutive funs, FULL_3D,
+    an initial yield, the effective stress ``effective_stress`` alone and
+    the identity material rotation; ``None`` otherwise. The rotation must
+    be the identity when a map is built: specialization keys on
     build-time structure. Reads the rotation to the host once, here,
     never per call."""
     from cmad_tpu_torch.models.small_elastic_plastic import (
@@ -62,9 +66,7 @@ def j2_voce_kind(model) -> str | None:
     vals = model.parameters.values
     try:
         plastic = vals["plastic"]
-        if set(plastic["effective stress"]) != {"J2"}:
-            return None
-        if set(plastic["flow stress"]["hardening"]) != {"voce"}:
+        if set(plastic["effective stress"]) != {effective_stress}:
             return None
         if "initial yield" not in plastic["flow stress"]:
             return None
@@ -72,6 +74,17 @@ def j2_voce_kind(model) -> str | None:
         return kind if np.allclose(R, np.eye(3)) else None
     except (KeyError, TypeError, AttributeError):
         return None
+
+
+def j2_voce_kind(model) -> str | None:
+    """``"rate"`` / ``"total"`` when ``model`` is a J2+Voce
+    :func:`elastic_plastic_kind` model — the exact cases the analytic
+    radial returns reproduce to the Newton tolerance; ``None``
+    otherwise."""
+    kind = elastic_plastic_kind(model, "J2")
+    hardening = (model.parameters.values["plastic"]["flow stress"].get(
+        "hardening", {}) if kind else {})
+    return kind if set(hardening) == {"voce"} else None
 
 
 def j2_voce_specializable(model) -> bool:
@@ -129,19 +142,20 @@ def make_batched_return_map(model, max_iters: int = 10,
     differentiable in ``params`` and the inputs. With
     ``specialize=True``, models recognized by :func:`j2_voce_specializable`
     dispatch to the analytic radial return (the CUDA kernels on CUDA
-    tensors; forward-only) instead.
+    tensors; forward-only) instead, and diagonal-Hosford models to the
+    reduced 4-dof Newton (``ops/hosford_return.py``), as differentiable
+    as the generic map. The principal-Hosford and Hill reductions come
+    with their effective stresses (ROADMAP queue 1, item 21).
     """
     if specialize and j2_voce_specializable(model):
         return make_j2_radial_return_for(model)
-    # The JAX package also reduces diagonal-Hosford, principal-Hosford
-    # and Hill models to smaller Newtons here (return_map.py:116-143).
-    # Their effective stresses are not ported yet, so no such model can
-    # be built in this package: they come with ROADMAP queue 1, items 19
-    # and 21.
-
-    solve = make_newton_solve(model.residual_fun, max_iters=max_iters,
-                              abs_tol=abs_tol, rel_tol=rel_tol,
-                              in_dims=(0, None, 0, 0))
+    if specialize and hosford_reducible(model):
+        solve = make_hosford_local_solve(model, max_iters=max_iters,
+                                         abs_tol=abs_tol, rel_tol=rel_tol)
+    else:
+        solve = make_newton_solve(model.residual_fun, max_iters=max_iters,
+                                  abs_tol=abs_tol, rel_tol=rel_tol,
+                                  in_dims=(0, None, 0, 0))
     cauchy = vmap(model.cauchy_fun, in_dims=(0, 0, None, 0, 0))
 
     def step(xi_prev: Tensor, grad_u: Tensor, grad_u_prev: Tensor, params):

@@ -19,29 +19,13 @@ import torch
 
 from cmad_tpu_torch.io.qoi_data import load_displacement_data
 from cmad_tpu_torch.io.registry import register_qoi
-from cmad_tpu_torch.ops.segment_sum import segment_gather
+from cmad_tpu_torch.qois.fe_displacement_l2 import (
+    _displacement_block,
+    _total_volume,
+    _u_blocks,
+    integrate_squared,
+)
 from cmad_tpu_torch.qois.fe_qoi import FEQoI, StepContribution
-
-
-def _displacement_block(fe_problem) -> tuple[int, int]:
-    """(residual index, field index) of the ``u`` block (a copy of
-    ``cmad_tpu/qois/fe_displacement_l2.py``'s helper)."""
-    var_names = list(fe_problem.gr.var_names)
-    try:
-        r = var_names.index("u")
-    except ValueError as e:
-        raise ValueError(
-            f"QoI requires a residual block with var_name 'u'; got "
-            f"{var_names}") from e
-    return r, fe_problem.field_idx_per_block[r]
-
-
-def _total_volume(fe_problem) -> float:
-    """The sum of every block's ``iso_jac_det * quad_w``."""
-    return float(sum(
-        (c["per_elem"]["iso_jac_det"].double()
-         * c["shared"]["quad_w"].double()[None, :]).sum()
-        for c in fe_problem.geometry_cache.values()))
 
 
 @register_qoi("fe_displacement_match")
@@ -81,31 +65,14 @@ class FEDisplacementMatch(FEQoI):
     def step_contribution(self, params_by_block: Mapping[str, dict],
                           fe_arrays) -> StepContribution:
         del params_by_block  # enters only through the solved state
-        fe_problem = self._fe_problem
-        r, field_idx = self._r_disp, self._field_idx
+        blocks = _u_blocks(self._fe_problem, fe_arrays, self._r_disp,
+                           self._field_idx)
         norm, data_flat = self._norm, self._data_flat
         t_schedule = self._t_schedule
-
-        blocks = []
-        for name in fe_problem.models_by_block:
-            geom = fe_arrays.geometry_cache[name]
-            blocks.append((fe_arrays.eq_plan_by_block[name][field_idx],
-                           fe_arrays.u_gather_eq_by_block[name][field_idx]
-                           .shape,
-                           geom["shared"]["N"][r],
-                           geom["per_elem"]["iso_jac_det"]
-                           * geom["shared"]["quad_w"][None, :]))
 
         def closure(U, U_prev, xi, xi_prev, t, t_prev):
             dt = float(t) - float(t_prev)
             step = int(np.argmin(np.abs(t_schedule - float(t))))
-            diff_global = U - data_flat[step]
-            total = U.new_zeros(())
-            for plan, shape, N, w_dv in blocks:
-                diff_elem = segment_gather(diff_global, plan).reshape(shape)
-                d_ip = torch.einsum("pa,eak->epk", N, diff_elem)
-                total = total + torch.sum(
-                    torch.sum(d_ip * d_ip, dim=-1) * w_dv)
-            return norm * dt * total
+            return norm * dt * integrate_squared(blocks, U - data_flat[step])
 
         return closure

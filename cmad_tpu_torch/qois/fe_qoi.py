@@ -18,7 +18,7 @@ from cmad_tpu_torch.qois.qoi_base import QoIBase
 from cmad_tpu_torch.typing import Tensor
 
 if TYPE_CHECKING:
-    from cmad_tpu_torch.fem.fe_problem import FEProblem
+    from cmad_tpu_torch.fem.fe_problem import FEProblem, FEState
     from cmad_tpu_torch.fem.kernel_arrays import FEKernelArrays
 
 # (U, U_prev, xi, xi_prev, t, t_prev) -> scalar step increment
@@ -39,3 +39,12 @@ class FEQoI(QoIBase, ABC):
                   fe_problem: "FEProblem",
                   t_schedule: Sequence[float]) -> "FEQoI":
         ...
+
+    def produces_primal_output(self) -> bool:
+        """True for a QoI that ``cmad primal`` writes instead of J."""
+        return False
+
+    def write_primal_outputs(self, fe_problem: "FEProblem",
+                             fe_state: "FEState") -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not produce a primal output")

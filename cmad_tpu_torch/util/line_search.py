@@ -73,6 +73,7 @@ def line_search(
         dphi_0: Tensor,
         settings: Mapping[str, Any],
         init_aux: PyTree,
+        active: Tensor | None = None,
 ) -> tuple[Tensor, PyTree]:
     """Returns ``(alpha, aux)``, per point, where ``aux`` is whatever
     ``eval_fn`` produced at the returned step (so callers can reuse e.g.
@@ -88,6 +89,11 @@ def line_search(
     the FULL step anyway unless it blew the merit up past
     ``100 x phi_0``, in which case fall back to the lowest-merit trial
     (the host FE Newton's acceptance policy in the JAX package).
+
+    ``active`` (per point, default all) marks the points whose step the
+    caller will take: the others count as accepted from the start, so
+    they never hold the loop open, and their ``(alpha, aux)`` are
+    meaningless. An active point's result does not depend on the others.
     """
     max_evals = settings["max evals"]
     c1 = settings["sufficient decrease"]
@@ -98,7 +104,9 @@ def line_search(
     one = torch.ones_like(phi_0)
     inf = torch.full_like(phi_0, float("inf"))
     evals = torch.zeros(phi_0.shape, dtype=torch.int64, device=phi_0.device)
-    alpha, ok, aux = one, torch.zeros_like(phi_0, dtype=torch.bool), init_aux
+    ok = (torch.zeros_like(phi_0, dtype=torch.bool) if active is None
+          else ~active)
+    alpha, aux = one, init_aux
     best_a, best_phi, best_aux = one, inf, init_aux
     full_phi, full_aux = inf, init_aux
 

@@ -397,3 +397,13 @@ def test_two_depth_ysd_recovery_matches_cmad_tpu(cube, tmp_path):
         assert port[k] == pytest.approx(ref[k], rel=1e-4)
     assert port["all.plastic.flow_stress.initial_yield.Y"] == \
         pytest.approx(200.0, rel=1e-2)
+
+
+def test_chip_smoke_runs_notch_hosford_yaml_as_written():
+    """``chip_smoke.py`` runs ``examples/notch_hosford.yaml`` through the
+    primal command as a dict, since the GPU host has no PyYAML: the dict
+    is the file, key for key."""
+    chip = runpy.run_path(str(REPO / "chip_smoke.py"))
+    deck = yaml.safe_load((REPO / "examples" / "notch_hosford.yaml")
+                          .read_text())
+    assert chip["NOTCH_HOSFORD_DECK"] == deck

@@ -269,3 +269,57 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(3).sum()
     assert path == tmp_path / "tr"
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+def _notch_deck():
+    from tests.support.torch_fe import notch_deck
+
+    return notch_deck()
+
+
+@pytest.mark.parametrize("where,name,item", [
+    ("model", "elastic", 19),
+    ("qoi", "calibration", 23),
+    ("qoi", "uniaxial_calibration", 23),
+])
+def test_advertised_but_unported_names_raise_with_their_item(where, name,
+                                                             item):
+    """A deck naming a model or QoI that the schema copy advertises but the
+    port has no module for raises NotImplementedError naming its ROADMAP
+    item, where it raised a KeyError about a missing module."""
+    from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
+    from cmad_tpu_torch.io.registry import (
+        registered_model_names,
+        registered_qoi_names,
+    )
+
+    deck = _notch_deck()
+    if where == "model":
+        assert name in registered_model_names()
+        deck["residuals"]["local residual"]["type"] = name
+    else:
+        assert name in registered_qoi_names()
+        deck["qoi"] = {"name": name}
+    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
+        build_fe_problem_from_deck(deck, dtype=torch.float64, device="cpu")
+
+
+def test_every_advertised_name_resolves_or_names_its_item():
+    from cmad_tpu_torch.io.registry import (
+        registered_model_names,
+        registered_qoi_names,
+        resolve_model,
+        resolve_qoi,
+    )
+
+    for names, resolve in ((registered_model_names(), resolve_model),
+                           (registered_qoi_names(), resolve_qoi)):
+        for name in names:
+            try:
+                resolve(name)
+            except NotImplementedError as e:
+                assert "ROADMAP queue 1, item" in str(e), name
+    for name in ("fe_displacement_l2", "fe_load_match", "fe_weighted_sum"):
+        assert resolve_qoi(name).problem_type == "fe"
+    with pytest.raises(KeyError):
+        resolve_model("no_such_model")

@@ -43,6 +43,7 @@ from cmad_tpu_torch.models.deformation_types import DefType, def_type_ndims
 from cmad_tpu_torch.models.effective_stress import (
     J2_effective_stress,
     conventional_effective_stress_fun,
+    hosford_effective_stress,
 )
 from cmad_tpu_torch.models.global_fields import GlobalFieldsAtPoint
 from cmad_tpu_torch.models.hardening import (
@@ -227,7 +228,11 @@ def test_sym_packing_and_hardening_match_jax():
 
 def test_later_effective_stresses_raise_naming_their_slice():
     assert conventional_effective_stress_fun("J2") is J2_effective_stress
-    for name in ("hill", "barlat", "hosford", "hosford_principal"):
+    # the diagonal Hosford form is ported (tests/ops/
+    # test_torch_hosford_return.py holds it to cmad_tpu's)
+    assert conventional_effective_stress_fun("hosford") \
+        is hosford_effective_stress
+    for name in ("hill", "barlat", "hosford_principal"):
         with pytest.raises(NotImplementedError, match="item 21"):
             conventional_effective_stress_fun(name)
     with pytest.raises(NotImplementedError, match="unknown"):

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Reference numbers of the FE J2 primal on the notch, from cmad_tpu on the
+"""Reference numbers of the FE primal on the notch, from cmad_tpu on the
 CPU in float64 with the sparse-direct solve.
 
-The deck is ``examples/notch_hosford.yaml`` with the J2 effective stress
-swapped in and the stepped driver (the configuration of the at-scale
-records in ``benchmarks/notch_hosford/``); ``--max-iters`` sets its global
-Newton cap. It prints one JSON object: after each step ||U|| and max
-|alpha|, the step's residual pair, and the mesh's sizes. ``chip_smoke.py``
-holds the port on the card against these numbers.
+The deck is ``examples/notch_hosford.yaml`` with the stepped driver (the
+configuration of the at-scale records in ``benchmarks/notch_hosford/``)
+and the effective stress of ``--effective-stress``: ``J2`` (the default)
+swaps J2 in, ``hosford`` keeps the deck's Hosford with a = 100;
+``--max-iters`` sets its global Newton cap. It prints one JSON object:
+after each step ||U|| and max |alpha|, the step's residual pair, and the
+mesh's sizes. ``chip_smoke.py`` holds the port on the card against these
+numbers.
 
     env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
         --mesh notch_h0.015.exo --max-iters 50
 
-At 47,628 tets the drive takes about five and a half minutes on eight CPU
-cores.
+At 47,628 tets the J2 drive takes about five and a half minutes on
+eight CPU cores; the Hosford drive took 21 minutes and its gradient
+(``--gradient``) 17 more, with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8``.
 
 ``--gradient`` adds the gradient of the notch calibration
 (``benchmarks/notch_hosford/calibrate_scale.py``): the drive above at the
@@ -62,6 +66,9 @@ def main() -> int:
                     help="also J and dJ/dY at Y = 2.6 against the truth")
     ap.add_argument("--hessian", action="store_true",
                     help="also d2J/dY2, J and dJ/dY at Y = 2.3")
+    ap.add_argument("--effective-stress", choices=("J2", "hosford"),
+                    default="J2",
+                    help="J2 swapped in (the default) or the deck's Hosford")
     ap.add_argument("--weight", type=float, default=1.0e6,
                     help="the QoI's weight (calibrate_scale.py: 1e6)")
     args = ap.parse_args()
@@ -83,8 +90,9 @@ def main() -> int:
     deck.pop("output")
     deck["discretization"]["mesh file"] = str(REPO / "examples/meshes"
                                               / args.mesh)
-    deck["residuals"]["local residual"]["materials"]["block_1"]["plastic"][
-        "effective stress"] = {"J2": {}}
+    if args.effective_stress == "J2":
+        deck["residuals"]["local residual"]["materials"]["block_1"][
+            "plastic"]["effective stress"] = {"J2": {}}
     gr = deck["residuals"]["global residual"]
     gr["driver"] = "stepped"
     gr["nonlinear max iters"] = args.max_iters
@@ -109,6 +117,7 @@ def main() -> int:
     print(json.dumps({
         **grad,
         "mesh": args.mesh, "max_iters": args.max_iters,
+        "effective_stress": args.effective_stress,
         "n_elems": int(fe.mesh.connectivity.shape[0]),
         "n_nodes": int(fe.mesh.nodes.shape[0]),
         "n_dofs": int(fe.dof_map.num_total_dofs),

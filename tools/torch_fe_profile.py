@@ -1,29 +1,31 @@
 #!/usr/bin/env python3
-"""Where a notch step's time goes on the card: one step of the FE J2
+"""Where a notch step's time goes on the card: one step of the FE
 primal traced by ``torch.profiler``.
 
-Runs the deck of ``chip_smoke.py`` (the notch with J2, the stepped
-driver and the linear solver of the deck's at-scale records: CG with the
+Runs the deck of ``chip_smoke.py`` (the notch with J2, or with the
+deck's Hosford under ``--effective-stress hosford``, the stepped driver
+and the linear solver of the deck's at-scale records: CG with the
 two-level preconditioner, rtol 1e-6, at most 2000 iterations, the
-Eisenstat-Walker forcing term; f64) through its first
-``--steps - 1`` steps untraced, then traces the last step and prints the
-step's wall seconds, the device time summed by kernel family (the port's
-own kernels: K1, CG's product ``csr_matvec``, the segment sums' tile
-and block paths and ``coarse_pair_sum``; then PyTorch's gathers,
-index writes, reductions, dense products, element-wise work, copies), the
-number of kernels launched, and the device's busy and idle shares of the
-step's wall time (the kernels run on one stream, so their times do not
-overlap). It also prints ``csr_matvec``'s device time per launch over the
-step's CG solves (mean, median, least and most), to set against its
-warm and cold times alone (``chip_smoke.py``): whether CG's loop reads the
-matrix from the L2 or from device memory. The tracer adds host time to
-every operation, so the step is also run untraced first, and the traced
-device time is given as a share of that wall time too (both runs take
-the same Newton and CG path, which it reports: the sums on the card are
-reproducible). Run from the root of a checkout on a machine with an
-NVIDIA GPU:
+Eisenstat-Walker forcing term; f64) through its first ``--steps - 1``
+steps untraced, then traces the last step and prints the step's wall
+seconds, the device time summed by kernel family (the port's own
+kernels: K1, CG's product ``csr_matvec``, the segment sums' tile and
+block paths and ``coarse_pair_sum``; then PyTorch's batched LU of the
+local Newton, gathers, index writes, reductions, dense products,
+element-wise work, copies), the number of kernels launched, and the
+device's busy and idle shares of the step's wall time (the kernels run
+on one stream, so their times do not overlap). It also prints
+``csr_matvec``'s device time per launch over the step's CG solves (mean,
+median, least and most), to set against its warm and cold times alone
+(``chip_smoke.py``): whether CG's loop reads the matrix from the L2 or
+from device memory. The tracer adds host time to every operation, so the
+step is also run untraced first, and the traced device time is given as
+a share of that wall time too (both runs take the same Newton and CG
+path, which it reports: the sums on the card are reproducible). Run from
+the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 tools/torch_fe_profile.py --mesh notch_h0.015.exo
+    python3 tools/torch_fe_profile.py --effective-stress hosford
 
 ``--hessian`` traces one evaluation of the stepped Hessian of
 ``chip_smoke.py``'s fe-hessian instead (the drive above at Y = 2.0 is the
@@ -66,6 +68,7 @@ FAMILIES = (
     ("gathers (tensor[index])", r"gather"),
     ("index writes (index_put_, scatter)", r"index|scatter"),
     ("reductions (dot, norm, sum)", r"reduce|dot|norm"),
+    ("batched LU (the local Newton's small solves)", r"getrf|getrs|magma"),
     ("dense products (gemv, gemm)", r"gemv|gemm"),
     ("dense Cholesky (potrf, potrs, trsm)", r"potrf|potrs|trsm|cholesky"),
     ("copies and fills", r"copy|memcpy|memset|fill|cat"),
@@ -88,6 +91,9 @@ def main() -> int:
                     help="trace the last of this many steps")
     ap.add_argument("--hessian", action="store_true",
                     help="trace one stepped Hessian evaluation instead")
+    ap.add_argument("--effective-stress", choices=("J2", "hosford"),
+                    default="J2",
+                    help="J2 swapped in (the default) or the deck's Hosford")
     args = ap.parse_args()
 
     import numpy as np
@@ -108,7 +114,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    deck = notch_deck(args.mesh, FE_RECORDS)
+    deck = notch_deck(args.mesh, FE_RECORDS, args.effective_stress)
     deck["discretization"]["num steps"] = args.steps
     bundle = build_fe_problem_from_deck(deck)
     fe = bundle.fe_problem
@@ -123,8 +129,9 @@ def main() -> int:
         truth.parent.mkdir(parents=True, exist_ok=True)
         np.save(truth, np.stack(state.U_history).reshape(
             len(state.U_history), -1, 3))
-        hbundle = build_fe_problem_from_deck(hess_deck(args.mesh,
-                                                       FE_RECORDS, truth))
+        hbundle = build_fe_problem_from_deck(hess_deck(
+            args.mesh, FE_RECORDS, truth,
+            effective_stress=args.effective_stress))
         p0, s0, hts, hess = build_fe_stepped_hessian_fn(hbundle)
 
         def work(stats: list) -> None:
