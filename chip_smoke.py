@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive cmad_tpu_torch's J2+Voce return-map path and the Hosford notch
-deck once on one NVIDIA GPU.
+"""Drive cmad_tpu_torch's J2+Voce return-map path, the Hosford notch deck
+and the elastic notch once on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -102,7 +102,24 @@ the built library's SASS counts them). The paths driven:
   iterations per step and an assembly's host and device time, and one
   gradient against cmad_tpu's (fe-hosford). No TPU kernel lies on this
   path: it runs the segment sums and ``csr_matvec``, and never
-  ``j2_soa_step``.
+  ``j2_soa_step``;
+- the closed-form elastic model on the generic per-point block (the
+  notch's mesh, BCs, E = 1000 and nu = 0.25 with ``type: elastic``): at
+  47,628 tets with the records' solver, isotropic linear and neo-Hookean,
+  ||U|| per step against cmad_tpu's, the linear one's U(t_k) against k/4
+  U(t_4), each drive twice bit for bit, an assembly's host and device
+  time beside the J2 block's (fe-elastic); the elastic calibration
+  (``fe_load_match`` against the truth's reactions, E and nu active at
+  1300 and 0.3): J and dJ/dc at 47,628 tets against cmad_tpu's and the
+  card's central difference, and at 480 tets the 2x2 stepped Hessian
+  against the central difference of the card's gradient and the scan
+  Hessian (fe-elastic-grad); the J2 notch at 480 tets with the local
+  residual's ``print convergence: true`` through the generic COUPLED
+  block and its 7-dof Newton, K1 never launched, against the J2 block's
+  drive (fe-print); and in fe-cli the elastic deck's ``primal`` with
+  Exodus (the closed-form Cauchy stress) and restart output, bit for bit
+  against the library drive. These run the segment sums and
+  ``csr_matvec``, never ``j2_soa_step``.
 
 Before the paths, ``j2_soa_step`` is held to its plain version at
 1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
@@ -122,7 +139,9 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -430,6 +449,41 @@ NOTCH_HOSFORD_DECK = {
                "global residual": ["u"],
                "local residual": {"block_1": ["cauchy", "alpha"]}},
 }
+# the elastic notch: examples/notch_hosford.yaml's mesh, BCs, E and nu
+# with the closed-form elastic model (type: elastic, def_type: full_3d),
+# the records' solver, Newton cap 50. cmad_tpu on the CPU in f64 with
+# sparse-direct solves (tools/fe_notch_reference.py --mesh
+# notch_h0.015.exo --max-iters 50 --model elastic --elastic-stress
+# {isotropic_linear,neohookean} --gradient, jax 0.9.0): ||U|| after each
+# of the 4 steps, and J and dJ/dc of the elastic calibration (E and nu
+# active at ELASTIC_START, E under the log transform about 1000: c = [log(E
+# / 1000), nu]; fe_load_match against the reaction of the drive at
+# ELASTIC_TRUTH on ymax_sides, component 1)
+FE_ELASTIC_REF_U_NORMS = {
+    "isotropic_linear": (0.564591204869381, 1.1291824097387488,
+                         1.693773614608117, 2.2583648194774852),
+    "neohookean": (0.5645590635461878, 1.1290474931164274,
+                   1.6934558646930136, 2.2577748998837612),
+}
+ELASTIC_TRUTH = {"E": 1000.0, "nu": 0.25}
+ELASTIC_START = {"E": 1300.0, "nu": 0.3}
+FE_ELASTIC_GRAD_REF_J = 0.5550530645164995
+FE_ELASTIC_GRAD_REF_DJ_DC = (4.808114624721396, 0.018320759599080805)
+# the linear material's U(t_k) against k/4 U(t_4): both are the Newton's
+# answer to the deck's 1e-8 relative residual (with CG at 1e-6 under the
+# forcing term; at 480 tets on the CPU they differ by 9.9e-14)
+ELASTIC_LINEAR_BOUND = 1e-6
+# fe-elastic-grad at 47,628 tets: the card's gradient against its central
+# difference in c at h = ELASTIC_FD_H (J is quadratic-like in c: the
+# truncation is ~h^2 of the gradient; the Newton's stopping noise in J,
+# ~1e-8 of it, over 2h adds ~1e-5)
+ELASTIC_FD_H, ELASTIC_FD_RTOL = 1e-3, 1e-3
+# fe-print: the J2 notch at 480 tets with the local residual's 'print
+# convergence: true' (the generic block, the 7-dof Newton) against the J2
+# block's drive of the same deck, both with the global Newton at 1e-12
+# and CG at 1e-10: they differ by the local Newton's tolerance (1e-12) on
+# each point's state (1.9e-11 in U on the CPU with direct solves)
+FE_PRINT_BOUND = 1e-9
 SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
 # R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
 ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
@@ -512,6 +566,37 @@ def notch_deck(mesh: str, solver: dict, effective_stress: str = "J2"
             "load_y": ["equilibrium", 1, "ymax_sides", "0.01 * t"]}},
         "linear solver": dict(solver),
     }
+
+
+def elastic_deck(mesh: str, solver: dict, elastic_stress: str) -> dict:
+    """The notch deck with the closed-form elastic model (the deck's E
+    and nu) and the Cauchy stress ``elastic_stress``."""
+    deck = notch_deck(mesh, solver)
+    local = deck["residuals"]["local residual"]
+    local.update({"type": "elastic", "elastic_stress": elastic_stress,
+                  "materials": {"block_1": {"elastic": dict(
+                      ELASTIC_TRUTH)}}})
+    return deck
+
+
+def elastic_grad_deck(mesh: str, solver: dict, data_file,
+                      tol=None) -> dict:
+    """:func:`elastic_deck` (isotropic linear) with E and nu active at
+    ELASTIC_START (E under the log transform about ELASTIC_TRUTH's) and
+    fe_load_match against ``data_file``, the truth's y reaction on
+    ymax_sides after each step."""
+    deck = elastic_deck(mesh, solver, "isotropic_linear")
+    deck["residuals"]["local residual"]["materials"]["block_1"] = {
+        "elastic": {"E": {"value": ELASTIC_START["E"], "active": True,
+                          "transform": {"log": ELASTIC_TRUTH["E"]}},
+                    "nu": {"value": ELASTIC_START["nu"], "active": True}}}
+    deck["qoi"] = {"name": "fe_load_match", "sideset": "ymax_sides",
+                   "components": [1], "data_file": str(data_file),
+                   "weight": 1.0}
+    if tol is not None:
+        deck["residuals"]["global residual"].update(
+            {"nonlinear absolute tol": tol, "nonlinear relative tol": tol})
+    return deck
 
 
 def fe_converged(log, nls) -> bool:
@@ -1557,6 +1642,7 @@ def main() -> int:
     # ---------------- the FE J2 primal and gradient on the notch ---------
     from cmad_tpu_torch.cli import fe_subcommands as fs
     from cmad_tpu_torch.cli.fe_common import (
+        build_fe_J_of_params_flat,
         build_fe_problem_from_deck,
         build_fe_stepped_hessian_fn,
         build_fe_stepped_vg,
@@ -1590,6 +1676,8 @@ def main() -> int:
         make_two_level_preconditioner,
     )
     from cmad_tpu_torch.fem.xi_carrier import pack_xi_by_block
+    from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
+    from cmad_tpu_torch.qois.fe_load_match import FELoadMatch
 
     def reset_counts():
         cuda_rr.reset_launch_counts()
@@ -1684,9 +1772,26 @@ def main() -> int:
             say(phase, f"j2_soa_step {label} N={n} ({plastic} plastic): "
                        f"device {cold:.4f} ms cold, {warm:.4f} ms warm")
 
-    def fe_unit_times(phase, bundle, state, stats, with_floor=False):
+    def traced_device_ms(fn):
+        """(device ms, kernels) of one call of ``fn``, from the CUDA
+        kernel events of one traced call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(ev.time_range.elapsed_us() for ev in kernels) * 1e-3,
+                len(kernels))
+
+    def fe_unit_times(phase, bundle, state, stats, with_floor=False,
+                      trace=False):
         """Times of the step's parts at the last step of the drive: one
-        assembly with its embedded-BC pair, K1 alone and its plain version
+        assembly with its embedded-BC pair (and its device time from one
+        traced call, with ``trace``), K1 alone and its plain version
         (with their parity; device times from a CUDA graph, warm and cold,
         K1's launch floor ``with_floor``, and K1's wrapper timed from the
         host), the two-level setup and one two-level CG solve of the
@@ -1714,6 +1819,8 @@ def main() -> int:
 
         with torch.no_grad():
             asm_ms = ms_of(lambda: assemble(U))
+            asm_dev = (traced_device_ms(lambda: assemble(U)) if trace
+                       else None)
             # K1 at the main path's shape, on the step's own inputs
             gradN = ka.geometry_cache["block_1"]["per_elem"]["grad_N_phys"][0]
             xs, ds, sc = soa_step_inputs(
@@ -1776,6 +1883,10 @@ def main() -> int:
                    f"bytes {t_bytes:.4f} ms at {BYTES_PER_K1_POINT} B per "
                    f"point, operations {t_ops:.4f} ms) = "
                    f"{b_ms / k1_cold:.1%} of the cold time")
+        if asm_dev is not None:
+            say(phase, f"one assembly traced: device {asm_dev[0]:.3f} ms in "
+                       f"{asm_dev[1]} kernels, {asm_dev[0] / asm_ms:.1%} of "
+                       f"its host time")
         say(phase, f"one linear solve (cg + two_level, rtol "
                    f"{floor['rtol']:g}, max iters {floor['max iters']}) of "
                    f"the step's first Newton system: "
@@ -1801,7 +1912,8 @@ def main() -> int:
                    f"{wall - est_asm - est_solve:.3f} s")
         return {"k1_ms": k1_ms, "k1_cold": k1_cold, "k1_plain": k1_plain,
                 "k1_plain_cold": k1_plain_cold, "k1_err": k1_err,
-                "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n}
+                "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n,
+                "asm_ms": asm_ms, "asm_dev": asm_dev}
 
     # ---------------- fe-notch-small ----------------
     bundle = build_fe_problem_from_deck(notch_deck(FE_SMALL_MESH,
@@ -1851,7 +1963,8 @@ def main() -> int:
                     f"err {worst:.3e} (bound {FE_REF_RTOL:g})")
     if not worst <= FE_REF_RTOL:
         raise RuntimeError("fe-notch: the drive misses cmad_tpu's answer")
-    fe_k1 = fe_unit_times("fe-notch", bundle, state, stats, with_floor=True)
+    fe_k1 = fe_unit_times("fe-notch", bundle, state, stats, with_floor=True,
+                          trace=True)
     say("fe-notch", f"j2_soa_step launches per step "
                     f"{[s['assemblies'] for s in stats]} at N = "
                     f"{fe_k1['n']}")
@@ -2450,6 +2563,47 @@ def main() -> int:
     Y_fit = fit["block_1.plastic.flow_stress.initial_yield.Y"]
     x0, vg_c = fs.fe_value_and_grad(build_fe_problem_from_deck(cdeck))
     checks["calibrate's first J"] = hist[0]["J"] == vg_c(x0)[0]
+    # the elastic notch (the generic CLOSED_FORM block) through the primal
+    # command with Exodus and restart output: U, the closed-form Cauchy
+    # stress per element, the restart's U and (initial, echoed) state and
+    # solver.json against fe_primal_drive and the writer's evaluation,
+    # bit for bit
+    from cmad_tpu_torch.fem.postprocess import evaluate_cauchy_at_ips
+    from cmad_tpu_torch.io.results import ip_average_to_element
+
+    edeck = elastic_deck(FE_SMALL_MESH, FE_RECORDS, "isotropic_linear")
+    edeck["output"] = {"write restart": True}
+    out = command("primal", fs.run_primal_fe, edeck, "primal_elastic")
+    e_exo = read_results(out / "notch_hosford.exo")
+    e_ckpt = np.load(out / "restart.npz")
+    ebundle = build_fe_problem_from_deck(edeck)
+    e_state, e_log = fe_primal_drive(ebundle)
+    n_t = len(e_state.t_history)
+    e_geom = ebundle.fe_problem.geometry_cache
+    e_cauchy = np.stack([ip_average_to_element(evaluate_cauchy_at_ips(
+        ebundle.fe_problem, e_state, k, "block_1"), e_geom, "block_1")
+        for k in range(n_t)])
+    checks["elastic primal u"] = np.array_equal(
+        np.stack([np.stack([e_exo.nodal[f"u_{c}"][k] for c in "xyz"],
+                           axis=1).reshape(-1) for k in range(n_t)]),
+        np.stack([e_state.U_at(k) for k in range(n_t)]))
+    checks["elastic primal cauchy"] = all(
+        np.array_equal(e_exo.element[f"cauchy_{c}"]["block_1"],
+                       e_cauchy[..., i])
+        for i, c in enumerate(("xx", "xy", "xz", "yy", "yz", "zz")))
+    checks["elastic restart"] = (
+        np.array_equal(e_ckpt["U"], e_state.U_at(n_t - 1))
+        and np.array_equal(e_ckpt["xi__block_1"],
+                           e_state.xi_at(n_t - 1, "block_1")))
+    checks["elastic solver.json"] = json.loads(
+        (out / "solver.json").read_text()) == e_log
+    e_norms = [float(np.linalg.norm(e_state.U_at(k)))
+               for k in range(1, n_t)]
+    say("fe-cli", f"the elastic notch (480 tets): ||U|| per step "
+                  f"{e_norms}, element sigma_yy at the last step in "
+                  f"[{e_cauchy[-1, :, 3].min():.6e}, "
+                  f"{e_cauchy[-1, :, 3].max():.6e}]")
+    del ebundle, e_state
     # examples/notch_hosford.yaml as written (480 tets, the deck's Newton
     # cap, the default direct solve, Exodus with u, cauchy and alpha), from
     # a copy of its directory: the primal's file against the library drive
@@ -2818,6 +2972,269 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("fe-hosford")
 
+    # ---------------- fe-elastic (this slice's main path) ----------------
+    # the notch with the closed-form elastic model (E = 1000, nu = 0.25)
+    # at 47,628 tets, the records' solver, Newton cap 50, once per Cauchy
+    # stress: ||U|| per step against cmad_tpu's; for the linear one,
+    # U(t_k) against k/4 U(t_4); the drive again, bit for bit; one
+    # assembly's host and device time against the J2 block's (fe-notch).
+    # The generic CLOSED_FORM block runs no TPU kernel: the path launches
+    # the segment sums and csr_matvec, never j2_soa_step
+    el_counts = {}
+    for stress in ("isotropic_linear", "neohookean"):
+        t0 = time.perf_counter()
+        bundle = build_fe_problem_from_deck(elastic_deck(FE_MESH, FE_RECORDS,
+                                                         stress))
+        fe = bundle.fe_problem
+        if (fe.modes_by_block != {"block_1": GlobalResidualMode.CLOSED_FORM}
+                or fe.state_blocks()
+                or "local_solve" in fe.evaluators_by_block["block_1"]):
+            raise RuntimeError("fe-elastic: the block is not the generic "
+                               "CLOSED_FORM block")
+        say("fe-elastic", f"{stress}: {FE_MESH}, "
+                          f"{fe.mesh.connectivity.shape[0]} tets, the "
+                          f"generic CLOSED_FORM block; problem built in "
+                          f"{time.perf_counter() - t0:.2f} s (host)")
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append((*fe_drive("fe-elastic", bundle, k1_per_assembly=0),
+                         time.perf_counter() - t0))
+        (state, _log, stats, counts, peak, drive_s), \
+            (state2, _log2, stats2, _c2, _p2, drive2_s) = runs
+        el_counts[stress] = counts
+        same = (np.array_equal(np.stack(state.U_history),
+                               np.stack(state2.U_history))
+                and [s["newton_iters"] for s in stats]
+                == [s["newton_iters"] for s in stats2]
+                and [s.get("cg_iters") for s in stats]
+                == [s.get("cg_iters") for s in stats2])
+        norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
+        ref = FE_ELASTIC_REF_U_NORMS[stress]
+        worst = max(abs(a - b) / b for a, b in zip(norms, ref, strict=True))
+        say("fe-elastic", f"{stress}: 4 steps in {drive_s:.3f} s and "
+                          f"{drive2_s:.3f} s ({drive_s / 4:.3f} s per step), "
+                          f"peak memory {peak / 2**30:.3f} GiB; ||U|| per "
+                          f"step {norms}; against cmad_tpu (CPU f64, "
+                          f"direct, Newton cap 50) {list(ref)}: max rel err "
+                          f"{worst:.3e} (bound {FE_REF_RTOL:g}); the two "
+                          f"drives' U, Newton and CG iterations "
+                          f"bit-identical: {same}")
+        if not (worst <= FE_REF_RTOL and same):
+            raise RuntimeError(f"fe-elastic: {stress} misses cmad_tpu's "
+                               f"answer or its drives differ")
+        if stress != "isotropic_linear":
+            del bundle, fe, state, state2
+            continue
+        U_hist = np.stack(state.U_history)
+        lin = max(float(np.abs(U_hist[k] - k / 4 * U_hist[4]).max())
+                  for k in range(1, 5)) / float(np.abs(U_hist[4]).max())
+        # one assembly at step 4 (the generic block, the COO dedup, the
+        # embedded-BC pair): host clock around synchronized work, and its
+        # kernels' device time from one traced call
+        ka, params = fe.kernel_arrays, params_by_block_from_models(fe)
+        U4, U3 = (torch.as_tensor(state.U_at(k), dtype=fe.dtype, device=dev)
+                  for k in (4, 3))
+
+        def assemble_el():
+            K, R, _xi = assemble_global(fe, ka, params, U4, U3,
+                                        float(state.t_history[4]))
+            return _embedded_bc_enforce(K, ka.prescribed_indices), R
+
+        with torch.no_grad():
+            el_asm = ms_of(assemble_el)
+            el_dev, el_kernels = traced_device_ms(assemble_el)
+        j2_dev, j2_kernels = fe_k1["asm_dev"]
+        say("fe-elastic", f"isotropic_linear: max_k |U(t_k) - k/4 U(t_4)| "
+                          f"/ max|U(t_4)| {lin:.3e} (bound "
+                          f"{ELASTIC_LINEAR_BOUND:g}); one assembly at step "
+                          f"4: host {el_asm:.3f} ms, device {el_dev:.3f} ms "
+                          f"in {el_kernels} kernels (traced), busy "
+                          f"{el_dev / el_asm:.1%}; the J2 block's (fe-notch:"
+                          f" K1): host {fe_k1['asm_ms']:.3f} ms, device "
+                          f"{j2_dev:.3f} ms in {j2_kernels} kernels")
+        if not lin <= ELASTIC_LINEAR_BOUND:
+            raise RuntimeError("fe-elastic: U is not linear in the load")
+        el_truth = (bundle, state)
+        del fe, state2, U4, U3
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-elastic")
+
+    # ---------------- fe-elastic-grad ----------------
+    # the elastic calibration: the truth is fe-elastic's isotropic linear
+    # drive, its y reaction on ymax_sides after each step the data
+    # (fe_load_match's write mode; fe_displacement_match would see no E:
+    # the displacement of one linear material under displacement loading
+    # does not depend on it); J and dJ/dc at E = 1300, nu = 0.3 with the
+    # records' solver against cmad_tpu's and the card's central difference
+    # (forward drives); at 480 tets, Newton 1e-12 and CG at 1e-10, the 2x2
+    # stepped Hessian against the central difference of the card's
+    # gradient and the scan Hessian
+    def reaction_data(bundle_t, state_t, name):
+        fe_t = bundle_t.fe_problem
+        series = work / f"{name}.csv"
+        FELoadMatch(fe_t, bundle_t.t_schedule.tolist(), "ymax_sides", [1],
+                    output_file=str(series)).write_primal_outputs(fe_t,
+                                                                  state_t)
+        data = np.loadtxt(series, delimiter=",").reshape(-1, 1)
+        np.save(work / f"{name}.npy", data)
+        return work / f"{name}.npy", data[:, 0]
+
+    data_file, reactions = reaction_data(*el_truth, "reaction_elastic_47628")
+    del el_truth
+    gbundle = build_fe_problem_from_deck(elastic_grad_deck(
+        FE_MESH, FE_RECORDS, data_file))
+    p0, s0, ts, vg = build_fe_stepped_vg(gbundle)
+    gstats = {}
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    J, g = vg(p0, s0, ts, stats=gstats)
+    sync()
+    egrad_s = time.perf_counter() - t0
+    egrad_counts = read_counts()
+    _pf, s_init, J_of = build_fe_J_of_params_flat(gbundle)
+    fd = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(2):
+            e = torch.zeros_like(p0)
+            e[i] = ELASTIC_FD_H
+            fd.append((float(J_of(p0 + e, s_init)) - float(J_of(p0 - e,
+                                                                 s_init)))
+                      / (2 * ELASTIC_FD_H))
+    fd_s = time.perf_counter() - t0
+    rel = {"J": abs(J - FE_ELASTIC_GRAD_REF_J) / abs(FE_ELASTIC_GRAD_REF_J),
+           "grad": max(abs(float(g[i]) - FE_ELASTIC_GRAD_REF_DJ_DC[i])
+                       / abs(FE_ELASTIC_GRAD_REF_DJ_DC[i]) for i in range(2)),
+           "fd": max(abs(float(g[i]) - fd[i]) / abs(fd[i])
+                     for i in range(2))}
+    fwd, rev = gstats["forward"], gstats["reverse"]
+    say("fe-elastic-grad", f"47,628 tets, the records' solver: truth "
+                           f"reactions per step {reactions.tolist()}; at E "
+                           f"{ELASTIC_START['E']}, nu {ELASTIC_START['nu']}"
+                           f": J {J!r}, dJ/dc {g.tolist()}; cmad_tpu (CPU "
+                           f"f64, direct) J {FE_ELASTIC_GRAD_REF_J!r}, dJ/dc"
+                           f" {list(FE_ELASTIC_GRAD_REF_DJ_DC)}: rel diff J "
+                           f"{rel['J']:.3e} (bound {FE_GRAD_J_RTOL:g}), "
+                           f"dJ/dc {rel['grad']:.3e} (bound "
+                           f"{FE_GRAD_G_RTOL:g}); the card's central "
+                           f"difference at h = {ELASTIC_FD_H:g} {fd} "
+                           f"({fd_s:.3f} s): rel diff {rel['fd']:.3e} "
+                           f"(bound {ELASTIC_FD_RTOL:g}); {egrad_s:.3f} s "
+                           f"(forward {sum(f['wall_s'] for f in fwd):.3f} "
+                           f"s: Newton {[f['newton_iters'] for f in fwd]}; "
+                           f"reverse {sum(r['wall_s'] for r in rev):.3f} s:"
+                           f" assemblies "
+                           f"{sum(r['assembly_s'] for r in rev):.3f} s, "
+                           f"transpose solves "
+                           f"{sum(r['solve_s'] for r in rev):.3f} s); "
+                           f"launches {egrad_counts}")
+    if not (rel["J"] <= FE_GRAD_J_RTOL and rel["grad"] <= FE_GRAD_G_RTOL
+            and rel["fd"] <= ELASTIC_FD_RTOL
+            and egrad_counts["j2_soa_step"] == 0
+            and all(egrad_counts[k] > 0 for k in (
+                "segment_sum_tile", "segment_sum_block", "coarse_pair_sum",
+                "csr_matvec"))):
+        raise RuntimeError("fe-elastic-grad: the gradient misses its bounds")
+    del gbundle, vg, J_of
+    sync()
+    torch.cuda.empty_cache()
+    small = elastic_deck(FE_SMALL_MESH, FE_CG_TIGHT, "isotropic_linear")
+    small["residuals"]["global residual"].update(
+        {"nonlinear absolute tol": GRAD_SMALL_TOL,
+         "nonlinear relative tol": GRAD_SMALL_TOL})
+    sb = build_fe_problem_from_deck(small)
+    data_small, _r = reaction_data(sb, fe_primal_drive(sb)[0],
+                                   "reaction_elastic_480")
+    hdeck = elastic_grad_deck(FE_SMALL_MESH, FE_CG_TIGHT, data_small,
+                              GRAD_SMALL_TOL)
+    hb = build_fe_problem_from_deck(hdeck)
+    p0, s0, ts, hess = build_fe_stepped_hessian_fn(hb)
+    t0 = time.perf_counter()
+    J_h, g_h, H_h, asym_h = hess.with_gradient(p0, s0, ts)
+    hess_s = time.perf_counter() - t0
+    _q, _s, _t, vg = build_fe_stepped_vg(hb)
+    fd_H = np.zeros((2, 2))
+    for i in range(2):
+        e = torch.zeros_like(p0)
+        e[i] = GRAD_SMALL_H
+        fd_H[:, i] = (vg(p0 + e, s0, ts)[1] - vg(p0 - e, s0, ts)[1]) \
+            / (2 * GRAD_SMALL_H)
+    hdeck["residuals"]["global residual"]["driver"] = "scan"
+    t0 = time.perf_counter()
+    H_scan = fs.fe_hessian(build_fe_problem_from_deck(hdeck))[0]
+    scan_s = time.perf_counter() - t0
+    scale = float(np.abs(H_h).max())
+    rel = {"fd": float(np.abs(H_h - fd_H).max()) / scale,
+           "scan": float(np.abs(H_scan - H_h).max()) / scale}
+    say("fe-elastic-grad", f"480 tets, Newton tol {GRAD_SMALL_TOL:g}: J "
+                           f"{J_h!r}, dJ/dc {np.asarray(g_h).tolist()}; "
+                           f"stepped Hessian {H_h.tolist()} ({hess_s:.3f} "
+                           f"s, max_asym {asym_h:.3e}); central difference "
+                           f"of the card's gradient at h = "
+                           f"{GRAD_SMALL_H:g} {fd_H.tolist()}: rel diff "
+                           f"{rel['fd']:.3e} (bound {HESS_SMALL_FD_RTOL:g});"
+                           f" scan Hessian {H_scan.tolist()} "
+                           f"({scan_s:.3f} s): rel diff {rel['scan']:.3e} "
+                           f"(bound {HESS_SMALL_RTOL:g})")
+    if not (rel["fd"] <= HESS_SMALL_FD_RTOL
+            and rel["scan"] <= HESS_SMALL_RTOL and scale > 0.0):
+        raise RuntimeError("fe-elastic-grad: the Hessian misses its bounds")
+    del sb, hb, hess, vg
+    lap("fe-elastic-grad")
+
+    # ---------------- fe-print ----------------
+    # the J2 notch at 480 tets with the local residual's 'print
+    # convergence: true': the generic COUPLED block and its 7-dof Newton,
+    # each local iteration printed (counted here, not echoed), K1 never
+    # launched; against the J2 block's drive of the same deck without
+    # printing, both with the global Newton at 1e-12 and CG at 1e-10
+    def print_deck(on):
+        deck = notch_deck(FE_SMALL_MESH, FE_CG_TIGHT)
+        deck["residuals"]["global residual"].update(
+            {"nonlinear absolute tol": GRAD_SMALL_TOL,
+             "nonlinear relative tol": GRAD_SMALL_TOL})
+        deck["residuals"]["local residual"]["print convergence"] = on
+        return deck
+
+    pb = build_fe_problem_from_deck(print_deck(True))
+    ev = pb.fe_problem.evaluators_by_block["block_1"]
+    if "local_solve" not in ev or "xi_carrier" in ev:
+        raise RuntimeError("fe-print: the block is not the generic COUPLED "
+                           "block")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        p_state, _pl, p_stats, print_counts, _pk = fe_drive(
+            "fe-print", pb, k1_per_assembly=0)
+    print_s = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        if line.startswith("[fe-print]"):
+            print(line, flush=True)
+    n_local = sum("abs ||C|| =" in ln for ln in lines)
+    t0 = time.perf_counter()
+    j_state, _jl, j_stats, _jc, _jp = fe_drive(
+        "fe-print", build_fe_problem_from_deck(print_deck(False)))
+    j2_s = time.perf_counter() - t0
+    U_p, U_j = np.stack(p_state.U_history), np.stack(j_state.U_history)
+    print_rel = float(np.abs(U_p - U_j).max() / np.abs(U_j).max())
+    say("fe-print", f"480 tets x 4 steps, Newton tol {GRAD_SMALL_TOL:g}: "
+                    f"the generic COUPLED block (7-dof Newton, printing) "
+                    f"{print_s:.3f} s, {sum(s['assemblies'] for s in p_stats)}"
+                    f" assemblies, {n_local} local-iteration lines printed; "
+                    f"the J2 block (K1) {j2_s:.3f} s; max|U_print - U_J2| / "
+                    f"max|U_J2| {print_rel:.3e} (bound {FE_PRINT_BOUND:g}); "
+                    f"launches {print_counts}")
+    if not (print_rel <= FE_PRINT_BOUND and n_local > 0
+            and print_counts["j2_soa_step"] == 0):
+        raise RuntimeError("fe-print: the printing drive misses the J2 "
+                           "block's")
+    del pb, p_state, j_state
+    lap("fe-print")
+
     # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
@@ -2901,13 +3318,19 @@ def main() -> int:
     # runs the FE kernels but not j2_soa_step
     hosford_path = {k: hos_counts.get(k, 0) + hgrad_counts.get(k, 0)
                     for k in main_path}
+    # the elastic path (fe-elastic's two primals + fe-elastic-grad's
+    # gradient at 47,628 tets) likewise
+    elastic_path = {k: sum(c.get(k, 0) for c in el_counts.values())
+                    + egrad_counts.get(k, 0) for k in main_path}
     say("launches", f"main paths (fe-grad + fe-hessian; history-drive; "
                     f"mp-batched; roofline): {main_path}; fe-grad "
                     f"{grad_counts}; fe-hessian {hess_counts}; fe-notch's "
                     f"primal launched "
                     f"{fe_counts}; fe-dispatch launched j2_soa_step "
                     f"{launches['j2_soa_step']} times; the Hosford path "
-                    f"(fe-hosford's primal + gradient) {hosford_path}")
+                    f"(fe-hosford's primal + gradient) {hosford_path}; the "
+                    f"elastic path (fe-elastic's primals + fe-elastic-"
+                    f"grad's gradient) {elastic_path}")
     if not all(v > 0 for v in main_path.values()):
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
 
@@ -2982,7 +3405,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[kname],
-         "hosford_launches": hosford_path[kname], "max_abs_err": err,
+         "hosford_launches": hosford_path[kname],
+         "elastic_launches": elastic_path[kname], "max_abs_err": err,
          "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],
          "bound_by": bounds[kname][1], "library_ms": lib, "cold_ms": cold,

@@ -1,14 +1,20 @@
 """Element + global FE assembly, block path.
 
-Port of the block path of ``cmad_tpu/fem/assembly.py`` (parity:
-reference ``cmad/fem/assembly.py``). A COUPLED block whose evaluators
-carry ``block_R_and_K_and_xi`` / ``block_R`` (``fem/j2_block.py``,
-``fem/coupled_block.py``) evaluates the whole element block in one batched call; its element
-residuals scatter into the global vector and its element matrices stream
-out in the ``(block, r, s)`` COO emit order, deduplicated into the pattern
-of :func:`assembled_coo_pattern`. That function rebuilds the identical
+Port of ``cmad_tpu/fem/assembly.py`` (parity: reference
+``cmad/fem/assembly.py``). Every block's evaluators carry
+``block_R_and_K_and_xi`` / ``block_R``: the J2 block
+(``fem/j2_block.py``), the point-batch block (``fem/coupled_block.py``)
+or the generic per-point block (``fem/generic_block.py``, CLOSED_FORM
+blocks and the COUPLED blocks the other two decline), each evaluating
+the whole element block in one batched call. Its element residuals
+scatter into the global vector and its element matrices stream out in
+the ``(block, r, s)`` COO emit order, deduplicated into the pattern of
+:func:`assembled_coo_pattern`. That function rebuilds the identical
 with-duplicates ``(rows, cols)`` stream from the same eq-index helper
-the scatter uses, so the pattern and the data cannot drift apart.
+the scatter uses, so the pattern and the data cannot drift apart. A
+CLOSED_FORM block has no state: it takes no ``xi_prev`` and returns
+none, and :func:`assemble_global` leaves it out of ``xi_solved_by_block``
+(the drivers echo its initial state forward, as the JAX package's do).
 
 Both sums, and the gathers of U, go through the segment-sum plans of
 ``fem/kernel_arrays.py`` (``ops/segment_sum.py``): each target adds its
@@ -16,10 +22,7 @@ entries in ascending entry order, on the card (the ``segment_sum``
 kernel) as on the CPU (``index_add_``), so R and K are the same bits from
 run to run, and the reverse sweep's transposes are too.
 
-The generic per-IP assembly (nested per-element and per-IP evaluation
-for CLOSED_FORM blocks and the COUPLED blocks neither block path takes)
-is not ported yet (ROADMAP queue 1, items 11 and 19); neither are
-Neumann loads (item 8).
+Neumann loads are not ported yet (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -87,17 +90,15 @@ def gather_element_U(U_global: Tensor, fe_arrays: "FEKernelArrays",
 
 
 def _block_evaluators(fe_problem, block_name, xi_prev_per_block):
+    """The block's evaluators and the state they take: ``xi_prev`` for a
+    COUPLED block (required), None for a CLOSED_FORM one."""
     evaluators = fe_problem.evaluators_by_block[block_name]
-    if fe_problem.modes_by_block[block_name] != GlobalResidualMode.COUPLED \
-            or "block_R" not in evaluators:
-        raise NotImplementedError(
-            f"block {block_name!r}: only the COUPLED block paths are "
-            "ported (fem/j2_block.py, fem/coupled_block.py); the generic "
-            "per-IP assembly waits for ROADMAP queue 1, items 11 and 19")
+    if fe_problem.modes_by_block[block_name] != GlobalResidualMode.COUPLED:
+        return evaluators, None
     if xi_prev_per_block is None:
         raise ValueError(
             f"COUPLED block {block_name!r} requires xi_prev_per_block")
-    return evaluators
+    return evaluators, xi_prev_per_block
 
 
 def _scatter_residual(fe_problem, fe_arrays, block_name, R_e: Tensor):
@@ -112,19 +113,19 @@ def assemble_element_block(fe_problem: "FEProblem",
                            block_name: str, U_global: Tensor,
                            U_prev_global: Tensor, t: float,
                            xi_prev_per_block: Tensor | None = None):
-    """One block's (R contribution, COO vals, xi_solved).
+    """One block's (R contribution, COO vals, xi_solved | None).
 
     ``R`` is a full-length global vector (zeros off-block) so blocks sum;
     ``vals`` stream in (r, s) order matching
     :func:`assembled_coo_pattern`.
     """
-    evaluators = _block_evaluators(fe_problem, block_name,
-                                   xi_prev_per_block)
+    evaluators, xi_prev = _block_evaluators(fe_problem, block_name,
+                                            xi_prev_per_block)
     U_elem = gather_element_U(U_global, fe_arrays, block_name)
     U_prev_elem = gather_element_U(U_prev_global, fe_arrays, block_name)
     R_e, K_e, xi_solved = evaluators["block_R_and_K_and_xi"](
         params_by_block[block_name], U_elem[0], U_prev_elem[0],
-        fe_arrays.geometry_cache[block_name], None, t, xi_prev_per_block)
+        fe_arrays.geometry_cache[block_name], None, t, xi_prev)
     R = _scatter_residual(fe_problem, fe_arrays, block_name, R_e)
     n_elems = R_e.shape[0]
     return R, K_e.reshape(n_elems, -1).reshape(-1), xi_solved
@@ -134,19 +135,20 @@ def assemble_element_block_residual(fe_problem, fe_arrays, params_by_block,
                                     block_name, U_global, U_prev_global,
                                     t, xi_prev_per_block=None) -> Tensor:
     """Residual-only block assembly (no tangent)."""
-    evaluators = _block_evaluators(fe_problem, block_name,
-                                   xi_prev_per_block)
+    evaluators, xi_prev = _block_evaluators(fe_problem, block_name,
+                                            xi_prev_per_block)
     U_elem = gather_element_U(U_global, fe_arrays, block_name)
     U_prev_elem = gather_element_U(U_prev_global, fe_arrays, block_name)
     R_e = evaluators["block_R"](
         params_by_block[block_name], U_elem[0], U_prev_elem[0],
-        fe_arrays.geometry_cache[block_name], None, t, xi_prev_per_block)
+        fe_arrays.geometry_cache[block_name], None, t, xi_prev)
     return _scatter_residual(fe_problem, fe_arrays, block_name, R_e)
 
 
 def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
                     U_prev_global, t, xi_prev_by_block=None):
-    """(K deduped, R, xi_solved_by_block) over all element blocks.
+    """(K deduped, R, xi_solved_by_block) over all element blocks;
+    ``xi_solved_by_block`` holds the COUPLED blocks only.
 
     Convention: ``R(U) = R_int(U) - F_ext``; the Newton driver solves
     ``K dU = -R``.
@@ -163,7 +165,8 @@ def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
             xi_prev_per_block=xi_prev.get(block_name))
         R = R_b if R is None else R + R_b
         vals_all.append(vals)
-        xi_solved_by_block[block_name] = xi_solved
+        if xi_solved is not None:
+            xi_solved_by_block[block_name] = xi_solved
 
     vals = torch.cat(vals_all)
     unique = segment_sum(vals, fe_arrays.coo_dedup_plan)

@@ -46,9 +46,9 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from cmad_tpu_torch import config
 from cmad_tpu_torch.global_residuals.global_residual import (
     GlobalResidual,
+    default_local_newton_settings,
     strain_fields,
 )
 from cmad_tpu_torch.models.deformation_types import DefType
@@ -103,7 +103,7 @@ def make_pointbatch_block_kernels(
     with the contract of ``fem/j2_block.py``: both take ``(params, U_elem,
     U_prev_elem, geom, forcing_fn, t, xi_prev)`` with ``U_elem`` (E, nd, 3)
     and ``xi_prev`` the AoS state (E, Q, 7). ``"local_solve"`` is the
-    :class:`~cmad_tpu_torch.models.nonlinear_solver.StrainLocalSolve`
+    :class:`~cmad_tpu_torch.models.nonlinear_solver.LocalSolve`
     they run (its ``newton.log`` records iterations when set to a
     list)."""
     from cmad_tpu_torch.models.small_rate_elastic_plastic import (
@@ -111,10 +111,7 @@ def make_pointbatch_block_kernels(
     )
 
     if local_newton_settings is None:
-        abs_tol, rel_tol = config.newton_tols("fe_local",
-                                              model.parameters.dtype)
-        local_newton_settings = {"abs_tol": abs_tol, "rel_tol": rel_tol,
-                                 "max_iters": 20}
+        local_newton_settings = default_local_newton_settings(model)
     solve = GlobalResidual._build_local_solve(model, local_newton_settings)
     rate = type(model) is SmallRateElasticPlastic
 
@@ -154,7 +151,7 @@ def make_pointbatch_block_kernels(
         E, Q = wdv.shape
         x, x_prev = solve.unknowns(xi_p, params, g6)
         ds_dx, ds_dg = stress_jac_b(x, xi_p, params, g6)
-        D66 = ds_dg + ds_dx @ solve.strain_tangent(x, x_prev, params, g6)
+        D66 = ds_dg + ds_dx @ solve.tangent(x, x_prev, params, g6)
         s6 = stress_b(x, xi_p, params, g6)
         R = _residual(s6, gradN, wdv, forcing_fn)
 

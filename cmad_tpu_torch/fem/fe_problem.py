@@ -107,6 +107,13 @@ class FEProblem:
     def ndims(self) -> int:
         return int(self.mesh.nodes.shape[1])
 
+    def state_blocks(self) -> list[str]:
+        """The blocks whose state evolves (COUPLED), in block order; a
+        CLOSED_FORM block has none, and the drivers echo its initial
+        state forward."""
+        return [b for b in self.evaluators_by_block
+                if self.modes_by_block[b] == GlobalResidualMode.COUPLED]
+
     def num_ips(self) -> int:
         return self.assembly_quadrature[
             self.mesh.element_family].num_points

@@ -502,7 +502,7 @@ def _ift_inputs(fe_problem, params_by_block, U_prev, xi_prev_by_block, t,
            **(nonlinear_solver_settings or {})}
     lss = {**DEFAULT_LINEAR_SOLVER_SETTINGS,
            **(linear_solver_settings or {})}
-    blocks = list(fe_problem.evaluators_by_block)
+    blocks = fe_problem.state_blocks()
     leaves, rebuild = _flatten_tree(dict(params_by_block))
     spec = _IftSpec(fe_problem, fe_problem.kernel_arrays, float(t), nls, lss,
                     blocks, rebuild, len(leaves), profile)
@@ -518,7 +518,8 @@ def fe_newton_solve_ad(fe_problem: FEProblem,
                        profile: dict | None = None):
     """:func:`fe_newton_solve` with the implicit-function rule:
     ``(U*, xi*_by_block)`` differentiable in the parameter tensors,
-    ``U_prev`` and ``xi_prev_by_block`` (carrier layout, every block)."""
+    ``U_prev`` and ``xi_prev_by_block`` (carrier layout); the states are
+    those of the blocks that have one (``FEProblem.state_blocks``)."""
     spec, inputs = _ift_inputs(fe_problem, params_by_block, U_prev,
                                xi_prev_by_block, t, nonlinear_solver_settings,
                                linear_solver_settings, profile)

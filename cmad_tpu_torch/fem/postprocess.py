@@ -3,13 +3,14 @@ point, for the Exodus writer.
 
 Port of ``cmad_tpu/fem/postprocess.py`` (parity: reference
 ``cmad/fem/postprocess.py``) for the single displacement field: a state
-variable is a slice of the per-IP state; the Cauchy stress is the
-model's ``cauchy_fun`` at every (element, IP), with the displacement and
-its gradient interpolated from the cached shape functions. The mixed u-p
-branch (ROADMAP queue 1, item 22) and the closed-form models (item 19)
-are not ported. The recorded history comes in as numpy; the stress is
-evaluated on the problem's device, and only its (E, Q, 6) result is
-copied back for the writer.
+variable is a slice of the per-IP state; the Cauchy stress is, at every
+(element, IP), the model's ``cauchy_fun`` of the state on a COUPLED
+block and its ``cauchy_closed_form_fun`` on a CLOSED_FORM block, with
+the displacement and its gradient interpolated from the cached shape
+functions. The mixed u-p branch is not ported (ROADMAP queue 1, item
+22). The recorded history comes in as numpy; the stress is evaluated on
+the problem's device, and only its (E, Q, 6) result is copied back for
+the writer.
 """
 from __future__ import annotations
 
@@ -29,10 +30,10 @@ from cmad_tpu_torch.models.var_types import VarType, vector_from_sym_tensor
 def evaluate_cauchy_at_ips(fe_problem: FEProblem, fe_state: FEState,
                            step: int, block_name: str) -> np.ndarray:
     """(n_elems, n_ip, 6) Cauchy stress in internal sym-vec order."""
-    if fe_problem.modes_by_block[block_name] != GlobalResidualMode.COUPLED:
+    if getattr(fe_problem.gr, "mixed", False):
         raise NotImplementedError(
-            "the Cauchy output of a closed-form block is not ported yet: "
-            "ROADMAP queue 1, item 19")
+            "the Cauchy output of a mixed u-p block is not ported yet: "
+            "ROADMAP queue 1, item 22")
     model = fe_problem.models_by_block[block_name]
     geom = fe_problem.geometry_cache[block_name]
     dtype, dev = fe_problem.dtype, fe_problem.device
@@ -58,13 +59,18 @@ def evaluate_cauchy_at_ips(fe_problem: FEProblem, fe_state: FEState,
     U_now = fields_at(fe_state.U_at(step))
     U_prev = fields_at(fe_state.U_at(step - 1) if step > 0
                        else np.zeros_like(fe_state.U_at(step)))
-    xi = on_dev(fe_state.xi_at(step, block_name))
-    xi_prev = (on_dev(fe_state.xi_at(step - 1, block_name)) if step > 0
-               else torch.zeros_like(xi))
-    cauchy = vmap(model.cauchy_fun, in_dims=(0, 0, None, 0, 0))
+    params = model.parameters.values
     with torch.no_grad():
-        sigma = cauchy(xi.reshape(E * Q, -1), xi_prev.reshape(E * Q, -1),
-                       model.parameters.values, U_now, U_prev)
+        if fe_problem.modes_by_block[block_name] == GlobalResidualMode.COUPLED:
+            xi = on_dev(fe_state.xi_at(step, block_name))
+            xi_prev = (on_dev(fe_state.xi_at(step - 1, block_name))
+                       if step > 0 else torch.zeros_like(xi))
+            sigma = vmap(model.cauchy_fun, in_dims=(0, 0, None, 0, 0))(
+                xi.reshape(E * Q, -1), xi_prev.reshape(E * Q, -1), params,
+                U_now, U_prev)
+        else:
+            sigma = vmap(model.cauchy_closed_form_fun,
+                         in_dims=(None, 0, 0))(params, U_now, U_prev)
     return vector_from_sym_tensor(sigma).reshape(E, Q, 6).cpu().numpy()
 
 

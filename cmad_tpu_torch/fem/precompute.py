@@ -23,37 +23,7 @@ from cmad_tpu_torch.fem.dof import GlobalFieldLayout
 from cmad_tpu_torch.fem.mesh import Mesh, element_rms_edge_sizes
 from cmad_tpu_torch.fem.quadrature import QuadratureRule
 from cmad_tpu_torch.fem.topology import ElementFamily
-from cmad_tpu_torch.typing import Tensor
-
-
-def _det3(A: Tensor) -> Tensor:
-    """Closed-form determinant of (..., 3, 3) matrices (the JAX package's
-    ``ops.linalg.det3``, kept so both packages round alike)."""
-    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2]
-                            - A[..., 1, 2] * A[..., 2, 1])
-            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2]
-                              - A[..., 1, 2] * A[..., 2, 0])
-            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1]
-                              - A[..., 1, 1] * A[..., 2, 0]))
-
-
-def _inv3(A: Tensor) -> Tensor:
-    """Closed-form (adjugate / det) inverse of (..., 3, 3) matrices."""
-    c00 = A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1]
-    c01 = A[..., 0, 2] * A[..., 2, 1] - A[..., 0, 1] * A[..., 2, 2]
-    c02 = A[..., 0, 1] * A[..., 1, 2] - A[..., 0, 2] * A[..., 1, 1]
-    c10 = A[..., 1, 2] * A[..., 2, 0] - A[..., 1, 0] * A[..., 2, 2]
-    c11 = A[..., 0, 0] * A[..., 2, 2] - A[..., 0, 2] * A[..., 2, 0]
-    c12 = A[..., 0, 2] * A[..., 1, 0] - A[..., 0, 0] * A[..., 1, 2]
-    c20 = A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]
-    c21 = A[..., 0, 1] * A[..., 2, 0] - A[..., 0, 0] * A[..., 2, 1]
-    c22 = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
-    adj = torch.stack([
-        torch.stack([c00, c01, c02], dim=-1),
-        torch.stack([c10, c11, c12], dim=-1),
-        torch.stack([c20, c21, c22], dim=-1),
-    ], dim=-2)
-    return adj / _det3(A)[..., None, None]
+from cmad_tpu_torch.ops.linalg import det3, inv3
 
 
 def precompute_block_geometry(
@@ -87,8 +57,8 @@ def precompute_block_geometry(
                             dtype=dtype, device=device)   # (n_b, ng, 3)
         # iso_jac[e, p, i, j] = dx_i/dxi_j
         iso_jac = torch.einsum("eai,paj->epij", X, geom.grad_N)
-        det = _det3(iso_jac)
-        inv = _inv3(iso_jac)
+        det = det3(iso_jac)
+        inv = inv3(iso_jac)
         coords_ip = torch.einsum("pa,eai->epi", geom.N, X)
         grad_N_phys = tuple(
             torch.einsum("pnj,epji->epni", g_ref, inv)

@@ -95,7 +95,7 @@ def build_fe_stepped_value_and_grad(
            **(linear_solver_settings or {})}
     fe_arrays = fe_problem.kernel_arrays
     dev, dtype = fe_problem.device, fe_problem.dtype
-    blocks = list(fe_problem.evaluators_by_block)
+    blocks = fe_problem.state_blocks()
 
     def contribution(params_by_block, U, U_prev, xi, xi_prev, t, t_prev):
         if qoi is None:
@@ -265,7 +265,7 @@ def build_fe_stepped_hvp(
            **(linear_solver_settings or {})}
     fe_arrays = fe_problem.kernel_arrays
     dev, dtype = fe_problem.device, fe_problem.dtype
-    blocks = list(fe_problem.evaluators_by_block)
+    blocks = fe_problem.state_blocks()
 
     def step_outputs(p, U0, x0, t, t_prev, U_star=None, profile=None):
         """``[U, *xi, j]`` of the step from ``(U0, x0)`` at parameters

@@ -3,15 +3,18 @@
 Port of the displacement form of
 ``cmad_tpu/global_residuals/small_disp_equilibrium.py`` (parity:
 reference ``cmad/global_residuals/small_disp_equilibrium.py``): one
-block, ``u``, with ``R[a, i] = grad_N_phys[a, j] sigma[j, i] w dv``,
-assembled by the J2 block evaluators (``fem/j2_block.py``) for J2+Voce
-and by the point-batch block (``fem/coupled_block.py``) for the other
-small-strain elastic-plastic models. The near-null space is the
-rigid-body basis, computed directly from node coordinates.
+block, ``u``, with ``R[a, i] = grad_N_phys[a, j] sigma[j, i] w dv``. A
+block binds, in the JAX package's order, to the J2 block
+(``fem/j2_block.py``) for J2+Voce, else to the point-batch block
+(``fem/coupled_block.py``) for the other small-strain elastic-plastic
+models, else to the generic per-point block (``fem/generic_block.py``)
+with this weak form: CLOSED_FORM blocks (the elastic model) and the
+COUPLED blocks the first two decline (another model, or per-point
+convergence printing). The near-null space is the rigid-body basis,
+computed directly from node coordinates.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that brings them: the mixed u-p form (item 22) and the per-point
-weak form (CLOSED_FORM elastic models, items 11 and 19).
+The mixed u-p form is not ported yet and raises
+``NotImplementedError`` with its ROADMAP item (22).
 """
 from __future__ import annotations
 
@@ -58,6 +61,18 @@ class SmallDispEquilibrium(GlobalResidual):
         self.resid_names[0] = "equilibrium"
         self.var_names[0] = "u"
 
+        def residual_fn(xi, xi_prev, params, U, U_prev, model, mode,
+                        shapes_ip, w, dv, h, ip_set):
+            U_ip = self.interpolate_global_fields_at_ip(U, shapes_ip)
+            Up_ip = self.interpolate_global_fields_at_ip(U_prev, shapes_ip)
+            if mode == GlobalResidualMode.CLOSED_FORM:
+                sigma = model.cauchy_closed_form_fun(params, U_ip, Up_ip)
+            else:
+                sigma = model.cauchy_fun(xi, xi_prev, params, U_ip, Up_ip)
+            return [(shapes_ip[0].grad_N @ sigma) * w * dv]
+
+        super().__init__(residual_fn)
+
     @property
     def mixed(self) -> bool:
         return False
@@ -65,12 +80,13 @@ class SmallDispEquilibrium(GlobalResidual):
     def for_model(self, model, mode=GlobalResidualMode.COUPLED,
                   local_newton_settings=None,
                   print_local_convergence=False) -> dict:
-        """The J2 block evaluators (``fem/j2_block.py``) when the
-        model and mode admit them, else the point-batch block
-        (``fem/coupled_block.py``); anything else raises, naming the
-        ROADMAP item that ports it. ``local_newton_settings`` reaches the
-        point-batch block's local Newton, not the J2 block: its radial
-        return runs a fixed number of scalar Newton iterations."""
+        """The J2 block evaluators (``fem/j2_block.py``) when the model
+        and mode admit them, else the point-batch block
+        (``fem/coupled_block.py``), else the generic per-point block
+        (:meth:`GlobalResidual.for_model`). ``local_newton_settings``
+        reaches the point-batch and generic blocks' local Newton, not
+        the J2 block: its radial return runs a fixed number of scalar
+        Newton iterations."""
         from cmad_tpu_torch.fem.coupled_block import (
             make_pointbatch_block_kernels,
             pointbatch_applicable,
@@ -84,17 +100,8 @@ class SmallDispEquilibrium(GlobalResidual):
         if pointbatch_applicable(self, model, mode, print_local_convergence):
             return make_pointbatch_block_kernels(model,
                                                  local_newton_settings)
-        if mode == GlobalResidualMode.CLOSED_FORM:
-            raise NotImplementedError(
-                f"CLOSED_FORM binding of {type(model).__name__}: the "
-                "per-point weak form is not ported yet (ROADMAP queue 1, "
-                "items 11 and 19)")
-        raise NotImplementedError(
-            f"COUPLED binding of {type(model).__name__} outside the J2 "
-            "and point-batch blocks (another model family or def type, "
-            "or per-point convergence printing): the generic per-point "
-            "weak form is not ported yet (ROADMAP queue 1, items 11 and "
-            "19)")
+        return super().for_model(model, mode, local_newton_settings,
+                                 print_local_convergence)
 
     def near_null_space(self, mesh) -> np.ndarray:
         return rigid_body_modes(np.asarray(mesh.nodes, dtype=np.float64))

@@ -28,7 +28,6 @@ _SCHEMA_DIR = Path(__file__).resolve().parent / "schemas"
 # (schema subdirectory, name) -> the ROADMAP queue 1 item that ports it,
 # for every name the schema copy advertises whose module the port lacks
 _NOT_PORTED = {
-    ("models", "elastic"): 19,
     ("qois", "calibration"): 23,
     ("qois", "uniaxial_calibration"): 23,
 }

@@ -1,7 +1,8 @@
 """Kinematic helpers: deformation-gradient assembly per DefType.
 
 Port of ``cmad_tpu/models/kinematics.py`` (parity: reference
-``cmad/models/kinematics.py:10-65``). The constrained-stretch slots of
+``cmad/models/kinematics.py:10-65``), with the invariants of a 3x3
+tensor that the hyperelastic potentials read. The constrained-stretch slots of
 the flat state are passed in as tensors. F is built out of place
 (``stack``/``pad``, no indexed writes), so ``gather_F`` runs under
 ``torch.func`` transforms.
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as tnf
 
 from cmad_tpu_torch.models.deformation_types import DefType
+from cmad_tpu_torch.ops.linalg import det3
 from cmad_tpu_torch.typing import Tensor
 
 
@@ -64,6 +66,15 @@ def gather_F(
         return torch.diag_embed(diag)
 
     raise NotImplementedError(f"gather_F: def_type {def_type}")
+
+
+def compute_invariants(A: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The principal invariants ``(I1, I2, I3)`` of a 3x3 tensor; ``I3``
+    is the closed-form determinant (``ops/linalg.det3``)."""
+    I1 = torch.trace(A)
+    I2 = 0.5 * (I1**2 - torch.trace(A @ A))
+    I3 = det3(A)
+    return I1, I2, I3
 
 
 def off_axis_idx(uniaxial_stress_idx: int) -> np.ndarray:

@@ -220,67 +220,81 @@ def make_newton_solve(
     return solve
 
 
-class StrainLocalSolve:
-    """A material point's local problem with the strain as an explicit
-    input, solved over a batch of points, and its strain tangent.
+class LocalSolve:
+    """A material point's local problem with its driving input as an
+    explicit input, solved over a batch of points, and the tangent of
+    its solution in that input.
 
-    ``residual(x, x_prev, params, g6)`` is one point's residual in its
-    unknowns ``x`` (n,), where ``g6`` holds the symmetric strain rows
-    [xx, xy, xz, yy, yz, zz] the model reads (the increment in the rate
-    form, the total strain in the total form); ``reduce(xi_prev)`` picks
-    the unknowns' previous values out of one point's state, which also
-    seed the Newton, and ``expand(x, xi_prev, params, g6)`` rebuilds the
-    state. Calls are batched: ``xi_prev`` (B, nxi), ``g6`` (B, 6) and
-    ``params`` shared by every point. The parameters, the previous state
-    and the strain are each inputs of the implicit solve
-    (:class:`_ImplicitSolve`), never captured, so gradients reach all
-    three. ``newton.log``, when set to a list, records each solve's
-    iterations (:class:`_Newton`).
+    ``residual(x, x_prev, params, g, *aux)`` is one point's residual in
+    its unknowns ``x`` (n,). ``g`` is the input the tangent is taken in:
+    the symmetric strain rows [xx, xy, xz, yy, yz, zz] the small-strain
+    models read (the increment in the rate form, the total strain in the
+    total form), for the point-batch block; the element's displacement
+    coefficients (nd, 3), for the generic per-point block. ``aux`` are
+    ``n_aux`` further per-point inputs the tangent is not taken in (the
+    previous coefficients and the shape functions). ``reduce(xi_prev)``
+    picks the unknowns' previous values out of one point's state, which
+    also seed the Newton, and ``expand(x, xi_prev, params, g, *aux)``
+    rebuilds the state. Calls are batched: ``xi_prev`` (B, nxi), ``g``
+    (B, ...), each ``aux`` (B, ...) and ``params`` shared by every
+    point. The parameters, the previous state, ``g`` and ``aux`` are each
+    inputs of the implicit solve (:class:`_ImplicitSolve`), never
+    captured, so gradients reach all of them. ``newton.log``, when set to
+    a list, records each solve's iterations (:class:`_Newton`); with
+    ``print_local_convergence`` each iteration prints its largest
+    residual norms.
     """
 
     def __init__(self, residual, reduce, expand, max_iters: int = 10,
                  abs_tol: float | None = None, rel_tol: float | None = None,
-                 line_search_settings: dict[str, Any] | None = None):
+                 line_search_settings: dict[str, Any] | None = None,
+                 print_local_convergence: bool = False, n_aux: int = 0):
         self.residual, self.reduce, self.expand = residual, reduce, expand
-        self.newton = _Newton(residual, (0, None, 0), max_iters, abs_tol,
-                              rel_tol, line_search_settings)
+        dims = (0, None, 0, *(0,) * n_aux)
+        self.newton = _Newton(residual, dims, max_iters, abs_tol,
+                              rel_tol, line_search_settings,
+                              print_local_convergence)
         self._reduce_b = vmap(reduce)
-        self._expand_b = vmap(expand, in_dims=(0, 0, None, 0))
+        self._expand_b = vmap(expand, in_dims=(0, *dims))
         self._dr_dg_b = vmap(jacfwd(residual, argnums=3),
-                             in_dims=(0, 0, None, 0))
+                             in_dims=(0, *dims))
 
-    def unknowns(self, xi_prev: Tensor, params, g6: Tensor
+    def unknowns(self, xi_prev: Tensor, params, g: Tensor, *aux
                  ) -> tuple[Tensor, Tensor]:
         """``(x*, x_prev)``, each (B, n): the converged unknowns and
         their previous values."""
         x_prev = self._reduce_b(xi_prev)
-        spec = _Args((x_prev, params, g6))
+        spec = _Args((x_prev, params, g, *aux))
         return _ImplicitSolve.apply(x_prev, self.newton, spec,
                                     *spec.tensors), x_prev
 
-    def state(self, x: Tensor, xi_prev: Tensor, params, g6: Tensor
+    def state(self, x: Tensor, xi_prev: Tensor, params, g: Tensor, *aux
               ) -> Tensor:
         """The states (B, nxi) of the unknowns ``x``."""
-        return self._expand_b(x, xi_prev, params, g6)
+        return self._expand_b(x, xi_prev, params, g, *aux)
 
-    def __call__(self, xi_prev: Tensor, params, g6: Tensor) -> Tensor:
-        x, _x_prev = self.unknowns(xi_prev, params, g6)
-        return self.state(x, xi_prev, params, g6)
+    def __call__(self, xi_prev: Tensor, params, g: Tensor, *aux) -> Tensor:
+        x, _x_prev = self.unknowns(xi_prev, params, g, *aux)
+        return self.state(x, xi_prev, params, g, *aux)
 
-    def iterations(self, xi_prev: Tensor, params, g6: Tensor) -> Tensor:
+    def iterations(self, xi_prev: Tensor, params, g: Tensor, *aux
+                   ) -> Tensor:
         """Each point's Newton iterations (B,), for diagnostics: the same
         solve, primal only."""
         x_prev = self._reduce_b(xi_prev)
         with torch.no_grad():
-            return self.newton(x_prev, (x_prev, params, g6))[1]
+            return self.newton(x_prev, (x_prev, params, g, *aux))[1]
 
-    def strain_tangent(self, x: Tensor, x_prev: Tensor, params,
-                       g6: Tensor) -> Tensor:
-        """``dx*/dg6`` (B, n, 6) at converged unknowns by the
-        implicit-function rule, ``-(dr/dx)^-1 dr/dg6``: one batched solve
-        with six right-hand sides, in differentiable ops."""
-        A = self.newton.j_b(x, x_prev, params, g6)
-        return -torch.linalg.solve(A, self._dr_dg_b(x, x_prev, params, g6))
+    def tangent(self, x: Tensor, x_prev: Tensor, params, g: Tensor,
+                *aux) -> Tensor:
+        """``dx*/dg`` (B, n, *g.shape[1:]) at converged unknowns by the
+        implicit-function rule, ``-(dr/dx)^-1 dr/dg``: one batched solve
+        with a right-hand side per entry of ``g``, in differentiable
+        ops."""
+        A = self.newton.j_b(x, x_prev, params, g, *aux)
+        b = self._dr_dg_b(x, x_prev, params, g, *aux)
+        B, n = b.shape[0], b.shape[1]
+        return -torch.linalg.solve(A, b.reshape(B, n, -1)).reshape(b.shape)
 
 
 def make_newton_solve_with_stats(

@@ -26,7 +26,7 @@ Newton's Jacobian (``jacfwd`` of the residual) is the second derivative
 of the function JAX differentiates.
 
 The solve is written in strain space
-(:class:`~cmad_tpu_torch.models.nonlinear_solver.StrainLocalSolve`): the
+(:class:`~cmad_tpu_torch.models.nonlinear_solver.LocalSolve`): the
 residual reads the symmetric strain rows (the increment in the rate form,
 the total strain in the total form), which the point-batch FE block
 (``fem/coupled_block.py``) needs for its strain tangent, and
@@ -44,7 +44,7 @@ from cmad_tpu_torch.models.hardening import (
     combined_hardening_fun,
     get_hardening_funs,
 )
-from cmad_tpu_torch.models.nonlinear_solver import StrainLocalSolve
+from cmad_tpu_torch.models.nonlinear_solver import LocalSolve
 from cmad_tpu_torch.models.paths import cond_residual
 from cmad_tpu_torch.models.var_types import vector_from_sym_tensor
 from cmad_tpu_torch.typing import Tensor
@@ -157,7 +157,7 @@ def _expand_total(x4, xi_prev, params, g6):
 def make_hosford_strain_solve(model, max_iters: int = 10,
                               abs_tol: float | None = None,
                               rel_tol: float | None = None,
-                              line_search_settings=None) -> StrainLocalSolve:
+                              line_search_settings=None) -> LocalSolve:
     """The reduced solve in strain space (requires
     ``hosford_reducible(model)``): ``solve(xi_prev, params, g6) -> xi``,
     batched, seeded from the previous state."""
@@ -167,9 +167,9 @@ def make_hosford_strain_solve(model, max_iters: int = 10,
             f"{type(model).__name__} is not Hosford-reducible")
     residual, expand = ((_rate_residual, _expand_rate) if kind == "rate"
                         else (_total_residual, _expand_total))
-    return StrainLocalSolve(residual, _reduce, expand, max_iters=max_iters,
-                            abs_tol=abs_tol, rel_tol=rel_tol,
-                            line_search_settings=line_search_settings)
+    return LocalSolve(residual, _reduce, expand, max_iters=max_iters,
+                      abs_tol=abs_tol, rel_tol=rel_tol,
+                      line_search_settings=line_search_settings)
 
 
 def strain_rows(kind: str, U, U_prev) -> Tensor:

@@ -278,7 +278,6 @@ def _notch_deck():
 
 
 @pytest.mark.parametrize("where,name,item", [
-    ("model", "elastic", 19),
     ("qoi", "calibration", 23),
     ("qoi", "uniaxial_calibration", 23),
 ])
@@ -302,6 +301,37 @@ def test_advertised_but_unported_names_raise_with_their_item(where, name,
         deck["qoi"] = {"name": name}
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         build_fe_problem_from_deck(deck, dtype=torch.float64, device="cpu")
+
+
+def test_elastic_resolves_and_binds_closed_form_with_its_guards():
+    """``elastic`` resolves (it raised, naming item 19, before the port
+    had it): a deck with it binds its block CLOSED_FORM to the generic
+    block, with no state; the CLOSED_FORM guards of cmad_tpu hold."""
+    from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
+    from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
+    from cmad_tpu_torch.io.registry import resolve_model
+    from cmad_tpu_torch.models.elastic import Elastic
+
+    assert resolve_model("elastic") is Elastic
+    deck = _notch_deck()
+    local = deck["residuals"]["local residual"]
+    local["type"] = "elastic"
+    local["materials"]["block_1"] = {"elastic": {"E": 1000.0, "nu": 0.25}}
+    fe = build_fe_problem_from_deck(deck, dtype=torch.float64,
+                                    device="cpu").fe_problem
+    assert fe.modes_by_block == {"block_1": GlobalResidualMode.CLOSED_FORM}
+    assert set(fe.evaluators_by_block["block_1"]) == {
+        "block_R_and_K_and_xi", "block_R"}
+    assert fe.state_blocks() == []
+    model = fe.models_by_block["block_1"]
+    with pytest.raises(ValueError, match="only valid in COUPLED"):
+        fe.gr.for_model(model, GlobalResidualMode.CLOSED_FORM,
+                        local_newton_settings={"max_iters": 5})
+    plastic = build_fe_problem_from_deck(
+        _notch_deck(), dtype=torch.float64,
+        device="cpu").fe_problem.models_by_block["block_1"]
+    with pytest.raises(ValueError, match="supports_closed_form_cauchy"):
+        fe.gr.for_model(plastic, GlobalResidualMode.CLOSED_FORM)
 
 
 def test_every_advertised_name_resolves_or_names_its_item():

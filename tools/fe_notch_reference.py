@@ -43,6 +43,22 @@ on eight CPU cores; run it with
 
     env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
         --mesh notch_h0.015.exo --max-iters 50 --hessian
+
+``--model elastic`` swaps the deck's material for the closed-form
+elastic model with the deck's E = 1000 and nu = 0.25 (``type: elastic``,
+``def_type: full_3d``) and the Cauchy stress of ``--elastic-stress``
+(``isotropic_linear``, the default, or ``neohookean``); the JSON then has
+no max |alpha|. Its ``--gradient`` is the elastic calibration's: the
+drive is the truth, its reaction on ``ymax_sides`` (component 1, the
+loaded one) after each step the data, and J and dJ/dc come from E and nu
+active at E = 1300 (the log transform about 1000, c = log(E / 1000)) and
+nu = 0.3 (no transform) with ``fe_load_match`` (weight 1), which sees both
+(the displacement of one isotropic linear material under displacement
+loading does not depend on E).
+
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.015.exo --max-iters 50 --model elastic \\
+        --elastic-stress neohookean --gradient
 """
 from __future__ import annotations
 
@@ -71,6 +87,14 @@ def main() -> int:
                     help="J2 swapped in (the default) or the deck's Hosford")
     ap.add_argument("--weight", type=float, default=1.0e6,
                     help="the QoI's weight (calibrate_scale.py: 1e6)")
+    ap.add_argument("--model", choices=("plastic", "elastic"),
+                    default="plastic",
+                    help="the deck's elastic-plastic material (the "
+                         "default) or the closed-form elastic model")
+    ap.add_argument("--elastic-stress",
+                    choices=("isotropic_linear", "neohookean"),
+                    default="isotropic_linear",
+                    help="the elastic model's Cauchy stress")
     args = ap.parse_args()
 
     sys.path.insert(0, str(REPO))
@@ -90,7 +114,10 @@ def main() -> int:
     deck.pop("output")
     deck["discretization"]["mesh file"] = str(REPO / "examples/meshes"
                                               / args.mesh)
-    if args.effective_stress == "J2":
+    elastic = args.model == "elastic"
+    if elastic:
+        deck = elastic_deck(deck, args.elastic_stress)
+    elif args.effective_stress == "J2":
         deck["residuals"]["local residual"]["materials"]["block_1"][
             "plastic"]["effective stress"] = {"J2": {}}
     gr = deck["residuals"]["global residual"]
@@ -109,7 +136,9 @@ def main() -> int:
     drive_s = time.perf_counter() - t0
     steps = range(1, len(state.U_history))
     grad = {}
-    if args.gradient:
+    if args.gradient and elastic:
+        grad = elastic_gradient_reference(deck, bundle, state)
+    elif args.gradient:
         grad = gradient_reference(deck, state, args.weight)
     if args.hessian:
         grad = {**grad, "hessian": hessian_reference(deck, state,
@@ -117,16 +146,74 @@ def main() -> int:
     print(json.dumps({
         **grad,
         "mesh": args.mesh, "max_iters": args.max_iters,
-        "effective_stress": args.effective_stress,
+        **({"model": "elastic", "elastic_stress": args.elastic_stress}
+           if elastic else {"effective_stress": args.effective_stress}),
         "n_elems": int(fe.mesh.connectivity.shape[0]),
         "n_nodes": int(fe.mesh.nodes.shape[0]),
         "n_dofs": int(fe.dof_map.num_total_dofs),
         "U_norms": [float(np.linalg.norm(state.U_at(k))) for k in steps],
-        "alpha_max": [float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
-                      for k in steps],
+        **({} if elastic else {"alpha_max": [
+            float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
+            for k in steps]}),
         "log": log, "drive_s": drive_s, "jax": jax.__version__},
         indent=1))
     return 0
+
+
+def elastic_deck(deck: dict, elastic_stress: str) -> dict:
+    """The notch deck with the closed-form elastic model (the deck's E
+    and nu) in place of its elastic-plastic material."""
+    local = deck["residuals"]["local residual"]
+    local["type"] = "elastic"
+    local["elastic_stress"] = elastic_stress
+    local["materials"] = {"block_1": {"elastic": dict(
+        local["materials"]["block_1"]["elastic"])}}
+    return deck
+
+
+def elastic_gradient_reference(deck: dict, bundle, truth) -> dict:
+    """J and its gradient at E = 1300 (log transform about 1000) and nu =
+    0.3 against the reactions of ``truth`` (the drive at E = 1000, nu =
+    0.25) on ``ymax_sides``, component 1, from cmad_tpu's stepped
+    adjoint."""
+    import copy
+
+    import numpy as np
+    import yaml
+
+    from cmad_tpu.cli.fe_common import (
+        build_fe_problem_from_deck,
+        build_fe_stepped_vg,
+    )
+    from cmad_tpu.qois.fe_load_match import FELoadMatch
+
+    fe = bundle.fe_problem
+    with tempfile.TemporaryDirectory() as tmp:
+        series = Path(tmp) / "reaction.csv"
+        FELoadMatch(fe, bundle.t_schedule.tolist(), "ymax_sides", [1],
+                    output_file=str(series)).write_primal_outputs(fe, truth)
+        data = np.loadtxt(series, delimiter=",").reshape(-1, 1)
+        np.save(Path(tmp) / "reaction.npy", data)
+        deck = copy.deepcopy(deck)
+        deck["residuals"]["local residual"]["materials"]["block_1"] = {
+            "elastic": {"E": {"value": 1300.0, "active": True,
+                              "transform": {"log": 1000.0}},
+                        "nu": {"value": 0.3, "active": True}}}
+        deck["qoi"] = {"name": "fe_load_match", "sideset": "ymax_sides",
+                       "components": [1],
+                       "data_file": str(Path(tmp) / "reaction.npy"),
+                       "weight": 1.0}
+        path = Path(tmp) / "deck.yaml"
+        path.write_text(yaml.safe_dump(deck, sort_keys=False))
+        sens = build_fe_problem_from_deck(path, "gradient")
+        p0, state_init, ts, vg = build_fe_stepped_vg(sens)
+        t0 = time.perf_counter()
+        J, g = vg(p0, state_init, ts)
+    return {"E": 1300.0, "nu": 0.3, "E_truth": 1000.0, "nu_truth": 0.25,
+            "reactions": data[:, 0].tolist(), "J": float(J),
+            "dJ_dc": np.asarray(g).tolist(),
+            "canonical_c": np.asarray(p0).tolist(),
+            "gradient_s": time.perf_counter() - t0}
 
 
 def _sensitivity_bundle(deck: dict, truth, weight: float, Y: dict,
