@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive cmad_tpu_torch's J2+Voce return-map path, the Hosford notch deck
-and the elastic notch once on one NVIDIA GPU.
+"""Drive cmad_tpu_torch's J2+Voce return-map path, the Hosford notch deck,
+the elastic notch and the material-point stack once on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -98,7 +98,7 @@ the built library's SASS counts them). The paths driven:
   gradient and Hessian against central differences and the scan Hessian
   (fe-hosford-small); at 47,628 tets with the records' solver and Newton
   cap 50 the primal against cmad_tpu's CPU f64 ||U|| and max |alpha|,
-  its last two steps again, bit for bit, with the local Newton's
+  its last step again, bit for bit, with the local Newton's
   iterations per step and an assembly's host and device time, and one
   gradient against cmad_tpu's (fe-hosford). No TPU kernel lies on this
   path: it runs the segment sums and ``csr_matvec``, and never
@@ -119,7 +119,21 @@ the built library's SASS counts them). The paths driven:
   drive (fe-print); and in fe-cli the elastic deck's ``primal`` with
   Exodus (the closed-form Cauchy stress) and restart output, bit for bit
   against the library drive. These run the segment sums and
-  ``csr_matvec``, never ``j2_soa_step``.
+  ``csr_matvec``, never ``j2_soa_step``;
+- the material-point stack (``cli/mp_subcommands.py``, decks as dicts:
+  ``mp_deck``), where no TPU kernel lies and none of the kernels may
+  launch (mp-stack): on the round-trip deck of
+  ``tests/cli/test_mp_roundtrips.py`` (20 steps, the truth from the port's
+  primal, the evaluations at Y = 220) ``primal`` (twice), ``objective``,
+  ``gradient`` with each of the four strategies, ``hessian`` with
+  direct_adjoint and jvp, each file against the library call's number
+  bit for bit, the primal and J against the port on the CPU and against
+  cmad_tpu's CPU f64 numbers (``MP_REF``, from
+  ``tools/mp_reference.py``), the Newton iterations equal, ``calibrate``
+  (adjoint, L-BFGS-B) back to the truth, and the
+  sensitivity rules' errors; on ``small_elastic_plastic`` in uniaxial
+  stress (100 steps, ``uniaxial_calibration``) the primal's time per step
+  and one evaluation per strategy against cmad_tpu's.
 
 Before the paths, ``j2_soa_step`` is held to its plain version at
 1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
@@ -597,6 +611,227 @@ def elastic_grad_deck(mesh: str, solver: dict, data_file,
         deck["residuals"]["global residual"].update(
             {"nonlinear absolute tol": tol, "nonlinear relative tol": tol})
     return deck
+
+
+# the material-point stack (mp-stack): the round-trip deck of
+# tests/cli/test_mp_roundtrips.py ("a": small_rate_elastic_plastic, plane
+# stress, 20 steps to 1.5% strain, Y (log), S and D (bounds) active,
+# calibration) and small_elastic_plastic in uniaxial stress ("b": 100
+# steps to 1.2%, uniaxial_calibration), the size to time; the truth at the
+# deck's Y = 200, the evaluations at MP_EVAL_Y
+MP_STEPS = {"a": 20, "b": 100}
+MP_LAST_STRAIN = {"a": 0.015, "b": 0.012}
+MP_EVAL_Y = {"a": 220.0, "b": 240.0}
+MP_STRATEGIES = ("adjoint", "direct", "direct_adjoint", "jvp")
+MP_CPU_RTOL = 1e-12         # the card against the port on the CPU
+MP_REF_RTOL = 1e-10         # the primal and J against cmad_tpu
+MP_SENS_RTOL = 1e-9         # gradients and Hessians against cmad_tpu
+MP_CAL_RTOL = 1e-4          # calibrate's recovery of the truth
+
+# cmad_tpu's material-point numbers on the CPU in f64 (tools/mp_reference.py
+# on the decks of mp_deck; its output, verbatim)
+MP_REF = {'rules': {'hessian:adjoint': "sensitivity.type: 'cmad hessian' "
+                                       "requires 'direct_adjoint' or 'jvp'; "
+                                       "got 'adjoint'",
+                    'hessian:direct': "sensitivity.type: 'cmad hessian' "
+                                      "requires 'direct_adjoint' or 'jvp'; "
+                                      "got 'direct'",
+                    'calibrate:direct_adjoint': "sensitivity.type: 'cmad "
+                                                "calibrate' accepts "
+                                                "'adjoint', 'direct', or "
+                                                "'jvp' (first-order only); "
+                                                "got 'direct_adjoint'"},
+          'a': {'norms': [0.0, 183.56582872807735, 246.38574829912034,
+                          257.11417618357325, 264.7543899007542,
+                          270.7414415642786, 275.8193574723925,
+                          280.3769720433537, 284.6212308215161,
+                          288.66424079368676, 292.5677044182336,
+                          296.36611318068225, 300.07908745676644,
+                          303.71803926586267, 307.2898109152769,
+                          310.79868038661056, 314.24747515326874,
+                          317.6381950536232, 320.9723628065415,
+                          324.25122242845725, 327.4758521925317],
+                'xi_last': [293.25203728782736, 0.0, 0.0, 145.75210597368255,
+                            0.0, 4.5079531383885336e-21,
+                            0.015723626881754566, 0.9858780082865233],
+                'iters': [1, 5, 4, 4, 4, 4, 4, 4, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+                          3, 3, 3],
+                'J': 5846.540219981128,
+                'grad': {'adjoint': [5846.540219981147,
+                                     [7720.835673869762, 8590.37154514017,
+                                      128432.31793364076]],
+                         'direct': [5846.540219981147,
+                                    [7720.835673869774, 8590.371545140179,
+                                     128432.317933641]],
+                         'direct_adjoint': [5846.540219981147,
+                                            [7720.835673869762,
+                                             8590.37154514017,
+                                             128432.31793364076]],
+                         'jvp': [5846.540219981147,
+                                 [7720.835673869777, 8590.37154514018,
+                                  128432.31793364105]]},
+                'hess': {'direct_adjoint': [[5402.5573558460355,
+                                             10840.541822788671,
+                                             83634.80673730062],
+                                            [10840.541822788671,
+                                             7860.602370728341,
+                                             92977.2099815885],
+                                            [83634.80673730062,
+                                             92977.20998158849,
+                                             1534749.787295371]],
+                         'jvp': [[5402.5573558483675, 10840.541822789328,
+                                  83634.80673738777],
+                                 [10840.541822791183, 7860.6023707290515,
+                                  92977.20998168248],
+                                 [83634.80673734106, 92977.20998159781,
+                                  1534749.7872969056]]},
+                'calibrate': {'success': True,
+                              'status': 0,
+                              'message': 'CONVERGENCE: RELATIVE REDUCTION '
+                                         'OF F <= FACTR*EPSMCH',
+                              'fun': 3.487240346203687e-11,
+                              'nfev': 17,
+                              'njev': 17,
+                              'nit': 15,
+                              'Y_S_D': [199.9999959700807,
+                                        199.99958535393492,
+                                        20.000049163929205]}},
+          'b': {'norms': [0.0, 159.99999999997212, 182.62626262629448,
+                          200.10296469766553, 200.54591112904876,
+                          200.98789519954352, 201.42891891692202,
+                          201.86898428501007, 202.3080933039223,
+                          202.74624796988704, 203.1834502753279,
+                          203.619702208843, 204.0550057552837,
+                          204.48936289566075, 204.92277560722252,
+                          205.35524586338383, 205.78677563380646,
+                          206.21736688442996, 206.64702157734743,
+                          207.0757416709128, 207.50352911977131,
+                          207.93038587473328, 208.3563138829363,
+                          208.78131508774428, 209.2053914288039,
+                          209.62854484204925, 210.0507772596291,
+                          210.47209061001362, 210.89248681802584,
+                          211.31196780466308, 211.73053548731113,
+                          212.14819177964287, 212.56493859164942,
+                          212.9807778295931, 213.39571139611434,
+                          213.80974119015923, 214.22286910703517,
+                          214.63509703836448, 215.04642687211205,
+                          215.45686049261946, 215.86639978055476,
+                          216.27504661299517, 216.68280286332856,
+                          217.08967040136028, 217.49565109329225,
+                          217.90074680165063, 218.3049593854418,
+                          218.7082906999556, 219.1107425970227,
+                          219.51231692473846, 219.91301552772364,
+                          220.31284024699957, 220.71179291994264,
+                          221.10987538046692, 221.5070894588249,
+                          221.90343698181394, 222.2989197725791,
+                          222.69353965079526, 223.08729843256864,
+                          223.4801979304673, 223.8722399534995,
+                          224.2634263072468, 224.6537587936887,
+                          225.0432392113333, 225.43186935512267,
+                          225.81965101661413, 226.20658598372862,
+                          226.59267604101174, 226.97792296950948,
+                          227.36232854669595, 227.7458945466827,
+                          228.12862274009535, 228.51051489402423,
+                          228.8915727721859, 229.27179813482314,
+                          229.6511927387351, 230.02975833723005,
+                          230.4074966803089, 230.78440951438898,
+                          231.160498582589, 231.53576562452685,
+                          231.9102123764818, 232.2838405712922,
+                          232.65665193838782, 233.0286482038184,
+                          233.3998310902328, 233.77020231688326,
+                          234.1397635997323, 234.5085166512264,
+                          234.8764631805808, 235.24360489358062,
+                          235.6099434926616, 235.97548067688768,
+                          236.34021814203302, 236.70415758050876,
+                          237.0673006813933, 237.42964913041135,
+                          237.79120460998874, 238.15196879925512,
+                          238.51194337397516, 238.8711300066516],
+                'xi_last': [0.010805644349966743, 0.0, 0.0,
+                            -0.0054028221749833705, 0.0,
+                            -0.0054028221749833705, 0.010805644349966744,
+                            0.9942388711300066, 0.9942388711300066],
+                'iters': [1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2],
+                'J': 74513.32441566601,
+                'grad': {'adjoint': [74513.32441566601,
+                                     [34336.96892408961, 36866.9714688735,
+                                      889486.4656891121]],
+                         'direct': [74513.32441566601,
+                                    [34336.96892408961, 36866.97146887351,
+                                     889486.465689112]],
+                         'direct_adjoint': [74513.32441566601,
+                                            [34336.96892408961,
+                                             36866.9714688735,
+                                             889486.4656891121]],
+                         'jvp': [74513.32441566601,
+                                 [34336.968924089604, 36866.97146887349,
+                                  889486.4656891117]]},
+                'hess': {'direct_adjoint': [[7337.8295580661015,
+                                             27694.348501238554,
+                                             198943.1824072092],
+                                            [27694.34850123856,
+                                             11385.168650464033,
+                                             213311.71324609133],
+                                            [198943.1824072092,
+                                             213311.71324609133,
+                                             6225849.070730333]]}}}
+
+
+def mp_deck(where: Path, case: str, Y: float = 200.0,
+            qoi: bool = False) -> dict:
+    """Material-point deck ``case`` ("a" or "b") as a dict, its history
+    written to ``where``: at ``Y``, with its QoI (data ``where/data_<case>
+    .npy``) when ``qoi``."""
+    n = MP_STEPS[case]
+    nd = 2 if case == "a" else 1
+    eps = np.r_[0.0, np.linspace(0.0008, MP_LAST_STRAIN[case], n)]
+    F = np.repeat(np.eye(nd)[:, :, None], n + 1, axis=2)
+    F[0, 0, :] += eps
+    np.save(where / f"F_{case}.npy", F)
+    deck = {
+        "problem": {"type": "material_point", "name": f"mp_{case}"},
+        "model": {"name": ("small_rate_elastic_plastic" if case == "a"
+                           else "small_elastic_plastic"),
+                  "def_type": ("plane_stress" if case == "a"
+                               else "uniaxial_stress")},
+        "parameters": {
+            "elastic": {"E": {"value": 200e3}, "nu": {"value": 0.3}},
+            "plastic": {
+                "effective stress": {"J2": {"value": 0.0}},
+                "flow stress": {
+                    "initial yield": {"Y": {
+                        "value": Y, "active": True,
+                        "transform": {"log": 200.0}}},
+                    "hardening": {"voce": {
+                        "S": {"value": 200.0, "active": True,
+                              "transform": {"bounds": [100.0, 300.0]}},
+                        "D": {"value": 20.0, "active": True,
+                              "transform": {"bounds": [10.0, 30.0]}}}}}}},
+        "deformation": {"history_file": str(where / f"F_{case}.npy")},
+        "solver": {"newton": {}},
+    }
+    if qoi:
+        deck["qoi"] = {"name": ("calibration" if case == "a"
+                                else "uniaxial_calibration"),
+                       "data_file": str(where / f"data_{case}.npy"),
+                       "weight": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                                   [0.0, 0.0, 0.0]] if case == "a"
+                                  else [[1.0], [1.0e4], [1.0e4]])}
+        if case == "b":
+            deck["qoi"]["uniaxial_stress_idx"] = 0
+    return deck
+
+
+def mp_truth_data(case: str, cauchy, xi, stretches: slice) -> np.ndarray:
+    """The QoI's data from a primal at the truth: the stress history
+    (a); the axial stress and the two off-axis strains (b)."""
+    if case == "a":
+        return np.asarray(cauchy)
+    return np.vstack([cauchy[0, 0], np.asarray(xi)[:, stretches].T - 1.0])
 
 
 def fe_converged(log, nls) -> bool:
@@ -2804,8 +3039,8 @@ def main() -> int:
     # ---------------- fe-hosford (this slice's main path) ----------------
     # examples/notch_hosford.yaml's Hosford at the records' size (47,628
     # tets) with the records' solver and Newton cap 50: the primal against
-    # cmad_tpu's ||U|| and max |alpha| per step, its last two steps again
-    # bit for bit; the local Newton's iterations per step; an assembly's
+    # cmad_tpu's ||U|| and max |alpha| per step, its last step again bit
+    # for bit; the local Newton's iterations per step; an assembly's
     # host and device time; then one gradient of the notch calibration
     # against cmad_tpu's
     t0 = time.perf_counter()
@@ -2898,21 +3133,21 @@ def main() -> int:
                       f"{asm_dev:.2f} ms in {len(kernels)} kernels "
                       f"(traced), so the device is busy "
                       f"{asm_dev / asm_host:.1%} of it")
-    # the drive again from its own state at t = 2 (steps 3 and 4; step 1
-    # alone takes 60-65% of a drive): bit for bit the same U, xi, Newton
-    # path and CG counts
+    # the drive again from its own state at t = 3 (step 4; step 1 alone
+    # takes 60-65% of a drive, and since the material-point phase came
+    # one step is repeated where two were): bit for bit the same U, xi,
+    # Newton path and CG counts
     state2, _log2, stats2, _c2, _p2 = fe_drive(
         "fe-hosford", bundle, k1_per_assembly=0,
-        t_schedule=state.t_history[2:], U_init=state.U_at(2),
-        xi_init_by_block={"block_1": state.xi_at(2, "block_1")})
-    paths = [[s["newton_iters"] for s in st] for st in (stats[2:], stats2)]
-    cgs = [[s.get("cg_iters", []) for s in st] for st in (stats[2:], stats2)]
-    same_U = np.array_equal(np.stack(state.U_history[2:]),
+        t_schedule=state.t_history[3:], U_init=state.U_at(3),
+        xi_init_by_block={"block_1": state.xi_at(3, "block_1")})
+    paths = [[s["newton_iters"] for s in st] for st in (stats[3:], stats2)]
+    cgs = [[s.get("cg_iters", []) for s in st] for st in (stats[3:], stats2)]
+    same_U = np.array_equal(np.stack(state.U_history[3:]),
                             np.stack(state2.U_history))
-    same_xi = all(np.array_equal(state.xi_at(k, "block_1"),
-                                 state2.xi_at(k - 2, "block_1"))
-                  for k in (3, 4))
-    say("fe-hosford", f"steps 3-4 again from the drive's state at t = 2: "
+    same_xi = np.array_equal(state.xi_at(4, "block_1"),
+                             state2.xi_at(1, "block_1"))
+    say("fe-hosford", f"step 4 again from the drive's state at t = 3: "
                       f"Newton iterations per step {paths[0]} and "
                       f"{paths[1]}; CG iterations equal: {cgs[0] == cgs[1]};"
                       f" U bit-identical: {same_U}; xi bit-identical: "
@@ -3235,6 +3470,280 @@ def main() -> int:
     del pb, p_state, j_state
     lap("fe-print")
 
+    # ---------------- mp-stack (this slice's main path) ----------------
+    # the material-point stack through its commands (cli/mp_subcommands),
+    # decks as dicts (mp_deck): no TPU kernel lies on this path (cmad_tpu
+    # runs it as XLA code), so none of the hand-written kernels may launch.
+    # Deck a: primal (twice, the library call, and the library call with
+    # the eager Newton), objective, gradient with each strategy, hessian
+    # with both of its strategies and calibrate on the card; each file
+    # against the library call's number bit for bit; the primal and
+    # objective against the port on the CPU (MP_CPU_RTOL) and every number
+    # against cmad_tpu's (MP_REF, from tools/mp_reference.py); the
+    # sensitivity rules. Deck b (100 steps): the primal per step and one
+    # evaluation per strategy, timed
+    from cmad_tpu_torch.cli import mp_subcommands as mps
+    from cmad_tpu_torch.cli.common import build_mp_problem
+    from cmad_tpu_torch.cli.sensitivity import build_sensitivity_driver
+
+    mp_dir = work / "mp"
+    shutil.rmtree(mp_dir, ignore_errors=True)
+    mp_dir.mkdir(parents=True)
+    cpu = torch.device("cpu")
+    mp_walls: dict = {}
+
+    def mp_timed(label, fn, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        mp_walls[label] = time.perf_counter() - t0
+        return out
+
+    def mp_rel(a, b) -> float:
+        a, b = np.asarray(a, dtype=np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def mp_bound(label, err, bound):
+        say("mp-stack", f"{label}: {err:.3e} (bound {bound:g})")
+        if not err <= bound:
+            raise RuntimeError(f"mp-stack {label}: {err} > {bound}")
+
+    def mp_bits(label, a, b):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise RuntimeError(f"mp-stack {label}: not bit for bit")
+
+    def mp_json(path):
+        return json.loads(path.read_text())
+
+    def mp_primal(case, label):
+        """The truth's primal command on the card, twice, against its
+        library call (bits), the port on the CPU and cmad_tpu; writes the
+        QoI's data. Returns the card's (cauchy, xi)."""
+        deck = mp_deck(mp_dir, case)
+        out = mp_dir / f"primal_{case}"
+        mp_timed(f"primal {case}", mps.run_primal_mp, deck, out)
+        mps.run_primal_mp(deck, mp_dir / f"primal_{case}_again")
+        files = sorted(p.name for p in out.iterdir())
+        for name in files:
+            if name.endswith(".npy"):
+                mp_bits(f"{label} {name} twice", np.load(out / name),
+                        np.load(mp_dir / f"primal_{case}_again" / name))
+        problem = build_mp_problem(deck, "primal")
+        newton = problem.resolved["solver"]["newton"]
+        cauchy, xi, log, _J = mp_timed(
+            f"primal {case} library", mps.run_primal_pass, problem.model,
+            problem.F, newton)
+        mp_bits(f"{label} cauchy.npy", np.load(out / "cauchy.npy"), cauchy)
+        mp_bits(f"{label} xi.npy", np.load(out / "xi.npy"), xi)
+        layout = problem.model.layout
+        for k, name in enumerate(layout.var_names):
+            mp_bits(f"{label} xi_block_{k:02d}.npy",
+                    np.load(out / f"xi_block_{k:02d}.npy"),
+                    xi[:, layout.slc(name)])
+        if mp_json(out / "solver.json") != log:
+            raise RuntimeError(f"mp-stack {label}: solver.json differs from "
+                               f"the library's log")
+        if case == "a":
+            _c, xi_eager, log_eager, _J = mp_timed(
+                f"primal {case} eager", mps.run_primal_pass, problem.model,
+                problem.F, newton, cuda_graphs=False)
+            mp_bits(f"{label}: the Newton replayed from CUDA graphs against "
+                    f"eager", xi, xi_eager)
+            if log_eager != log:
+                raise RuntimeError(f"mp-stack {label}: the eager Newton's "
+                                   f"log differs")
+        log_cpu = log
+        if case == "a":
+            cpu_problem = build_mp_problem(deck, "primal", device=cpu)
+            c_cpu, xi_cpu, log_cpu, _ = mp_timed(
+                f"primal {case} cpu", mps.run_primal_pass,
+                cpu_problem.model, cpu_problem.F, newton)
+            mp_bound(f"{label} cauchy card vs CPU", mp_rel(cauchy, c_cpu),
+                     MP_CPU_RTOL)
+            mp_bound(f"{label} xi card vs CPU", mp_rel(xi, xi_cpu),
+                     MP_CPU_RTOL)
+        ref = MP_REF[case]
+        mp_bound(f"{label} ||cauchy|| per step vs cmad_tpu",
+                 mp_rel(np.linalg.norm(cauchy, axis=(0, 1)), ref["norms"]),
+                 MP_REF_RTOL)
+        mp_bound(f"{label} last xi vs cmad_tpu", mp_rel(xi[-1],
+                                                        ref["xi_last"]),
+                 MP_REF_RTOL)
+        iters = [e["iters"] for e in log]
+        if not (iters == [e["iters"] for e in log_cpu] == ref["iters"]):
+            raise RuntimeError(f"mp-stack {label}: Newton iterations "
+                               f"{iters} differ from the CPU's or "
+                               f"cmad_tpu's")
+        if not np.all(cauchy[:, :, 0] == 0.0):
+            raise RuntimeError(f"mp-stack {label}: cauchy at step 0 is not 0")
+        per_step = mp_walls[f"primal {case} library"] / len(iters) * 1e3
+        a_only = (f", eager {mp_walls['primal a eager']:.3f} s (bit for "
+                  f"bit), CPU {mp_walls['primal a cpu']:.3f} s"
+                  if case == "a" else "")
+        say("mp-stack", f"{label}: {len(files)} files bit for bit with the "
+                        f"library call and a second run; Newton iterations "
+                        f"{sum(iters)} over {len(iters)} steps, as in "
+                        f"cmad_tpu{' and on the CPU' if case == 'a' else ''}"
+                        f"; command {mp_walls[f'primal {case}']:.3f} s, "
+                        f"library {mp_walls[f'primal {case} library']:.3f} "
+                        f"s ({per_step:.2f} ms per step){a_only}")
+        stretches = (layout.slc("off-axis stretches") if case == "b"
+                     else None)
+        np.save(mp_dir / f"data_{case}.npy",
+                mp_truth_data(case, cauchy, xi, stretches))
+        return cauchy, xi
+
+    def mp_library(deck, subcommand, hess=False):
+        problem = build_mp_problem(deck, subcommand)
+        driver, x = mps.sensitivity_driver(problem, subcommand)
+        return driver.evaluate_hess(x) if hess else driver.evaluate_grad(x)
+
+    t_mp = time.perf_counter()
+    reset_counts()
+    mp_primal("a", "deck a primal")
+    deck_q = mp_deck(mp_dir, "a", MP_EVAL_Y["a"], qoi=True)
+    ref_a = MP_REF["a"]
+
+    out = mp_dir / "objective_a"
+    mp_timed("objective a", mps.run_objective_mp, deck_q, out)
+    J_file = mp_json(out / "J.json")["J"]
+    obj_problem = build_mp_problem(deck_q, "objective")
+    _c, _x, _l, J_lib = mps.run_primal_pass(
+        obj_problem.model, obj_problem.F,
+        obj_problem.resolved["solver"]["newton"], qoi=obj_problem.qoi)
+    mp_bits("deck a objective J.json", J_file, J_lib)
+    cpu_obj = build_mp_problem(deck_q, "objective", device=cpu)
+    _c, _x, _l, J_cpu = mp_timed(
+        "objective a cpu", mps.run_primal_pass, cpu_obj.model, cpu_obj.F,
+        cpu_obj.resolved["solver"]["newton"], qoi=cpu_obj.qoi)
+    mp_bound("deck a objective J card vs CPU", abs(J_file - J_cpu) / J_cpu,
+             MP_CPU_RTOL)
+    mp_bound("deck a objective J vs cmad_tpu",
+             abs(J_file - ref_a["J"]) / ref_a["J"], MP_REF_RTOL)
+
+    mp_grads = {}
+    for st in MP_STRATEGIES:
+        deck_s = {**deck_q, "sensitivity": {"type": st}}
+        out = mp_dir / f"gradient_a_{st}"
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            mp_timed(f"gradient a {st}", mps.run_gradient_mp, deck_s, out)
+            lib = mp_library(deck_s, "gradient")
+        if (st == "direct_adjoint") != ("side effect" in err.getvalue()):
+            raise RuntimeError(f"mp-stack gradient {st}: the direct_adjoint "
+                               f"warning rule does not hold")
+        g = np.load(out / "grad.npy")
+        mp_bits(f"deck a gradient {st} grad.npy", g, lib.grad)
+        mp_bits(f"deck a gradient {st} J.json", mp_json(out / "J.json")["J"],
+                lib.J)
+        J_ref, g_ref = ref_a["grad"][st]
+        mp_bound(f"deck a gradient {st} J vs cmad_tpu",
+                 abs(lib.J - J_ref) / J_ref, MP_REF_RTOL)
+        mp_bound(f"deck a gradient {st} vs cmad_tpu", mp_rel(g, g_ref),
+                 MP_SENS_RTOL)
+        mp_grads[st] = g
+    for st in MP_STRATEGIES[1:]:
+        mp_bound(f"deck a gradient {st} vs adjoint",
+                 mp_rel(mp_grads[st], mp_grads["adjoint"]), MP_SENS_RTOL)
+
+    mp_hess = {}
+    for st in ("direct_adjoint", "jvp"):
+        deck_s = {**deck_q, "sensitivity": {"type": st}}
+        out = mp_dir / f"hessian_a_{st}"
+        mp_timed(f"hessian a {st}", mps.run_hessian_mp, deck_s, out)
+        lib = mp_timed(f"hessian a {st} library", mp_library, deck_s,
+                       "hessian", hess=True)
+        H = np.load(out / "hess.npy")
+        mp_bits(f"deck a hessian {st} hess.npy", H, lib.hessian)
+        mp_bits(f"deck a hessian {st} grad.npy", np.load(out / "grad.npy"),
+                lib.grad)
+        mp_bound(f"deck a hessian {st} vs cmad_tpu",
+                 mp_rel(H, ref_a["hess"][st]), MP_SENS_RTOL)
+        mp_hess[st] = H
+    mp_bound("deck a hessian jvp vs direct_adjoint",
+             mp_rel(mp_hess["jvp"], mp_hess["direct_adjoint"]), MP_SENS_RTOL)
+
+    deck_c = {**deck_q, "sensitivity": {"type": "adjoint"},
+              "optimizer": {"algorithm": "L-BFGS-B"}}
+    out = mp_dir / "calibrate_a"
+    mp_timed("calibrate a", mps.run_calibrate_mp, deck_c, out)
+    status, hist = (mp_json(out / "opt_status.json"),
+                    mp_json(out / "opt_history.json"))
+    at_fun = [h for h in hist["history"] if h["J"] == status["fun"]]
+    if not (status["success"] and at_fun):
+        raise RuntimeError(f"mp-stack calibrate: {status}")
+    fit = dict(zip(hist["active_param_paths"], at_fun[-1]["params"],
+                   strict=True))
+    fit_YSD = [fit[k] for k in ("plastic.flow_stress.initial_yield.Y",
+                                "plastic.flow_stress.hardening.voce.S",
+                                "plastic.flow_stress.hardening.voce.D")]
+    mp_bound("deck a calibrate: Y, S, D vs the truth (200, 200, 20)",
+             mp_rel(fit_YSD, [200.0, 200.0, 20.0]), MP_CAL_RTOL)
+    cal_ref = ref_a["calibrate"]
+    say("mp-stack", f"deck a calibrate (adjoint, L-BFGS-B) from Y = "
+                    f"{MP_EVAL_Y['a']}: Y, S, D = {fit_YSD}, J = "
+                    f"{status['fun']:.6e}, nit {status['nit']}, nfev "
+                    f"{status['nfev']} (cmad_tpu: {cal_ref['Y_S_D']}, J = "
+                    f"{cal_ref['fun']:.6e}, nit {cal_ref['nit']}, nfev "
+                    f"{cal_ref['nfev']}); "
+                    f"{mp_walls['calibrate a']:.3f} s")
+
+    for key, message in MP_REF["rules"].items():
+        sub, st = key.split(":")
+        try:
+            build_sensitivity_driver({"type": st}, None, None, {}, sub)
+        except ValueError as e:
+            if str(e) != message:
+                raise RuntimeError(f"mp-stack rule {key}: {e!s} is not "
+                                   f"cmad_tpu's {message!r}") from e
+        else:
+            raise RuntimeError(f"mp-stack rule {key}: did not raise")
+    try:
+        mps.run_hessian_mp({**deck_q, "sensitivity": {"type": "adjoint"}},
+                           mp_dir / "refused")
+    except ValueError as e:
+        if str(e) != MP_REF["rules"]["hessian:adjoint"]:
+            raise
+    else:
+        raise RuntimeError("mp-stack: hessian with adjoint did not raise")
+    say("mp-stack", f"the sensitivity rules raise with cmad_tpu's messages "
+                    f"({len(MP_REF['rules'])} rules, and the hessian "
+                    f"command with adjoint)")
+
+    # deck b: the size to time
+    mp_primal("b", "deck b primal")
+    deck_b = mp_deck(mp_dir, "b", MP_EVAL_Y["b"], qoi=True)
+    ref_b = MP_REF["b"]
+    for st in MP_STRATEGIES:
+        deck_s = {**deck_b, "sensitivity": {"type": st}}
+        hess = st == "direct_adjoint"
+        with contextlib.redirect_stderr(io.StringIO()):
+            r = mp_timed(f"evaluation b {st}", mp_library, deck_s,
+                         "hessian" if hess else "gradient", hess=hess)
+        J_ref, g_ref = ref_b["grad"][st]
+        mp_bound(f"deck b {st} J vs cmad_tpu", abs(r.J - J_ref) / J_ref,
+                 MP_REF_RTOL)
+        mp_bound(f"deck b {st} gradient vs cmad_tpu", mp_rel(r.grad, g_ref),
+                 MP_SENS_RTOL)
+        if hess:
+            mp_bound("deck b direct_adjoint Hessian vs cmad_tpu",
+                     mp_rel(r.hessian, ref_b["hess"][st]), MP_SENS_RTOL)
+    sync()
+    mp_counts = read_counts()
+    if any(mp_counts.values()):
+        raise RuntimeError(f"mp-stack: a hand-written kernel launched: "
+                           f"{mp_counts}")
+    say("mp-stack", "walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in mp_walls.items()))
+    say("mp-stack", f"deck b ({MP_STEPS['b']} steps): the primal "
+                    f"{mp_walls['primal b library'] / MP_STEPS['b'] * 1e3:.2f}"
+                    f" ms per step on the card; one evaluation: " + ", ".join(
+                        f"{st} {mp_walls[f'evaluation b {st}']:.3f} s"
+                        for st in MP_STRATEGIES)
+                    + f"; launches {mp_counts} (the phase "
+                    f"{time.perf_counter() - t_mp:.1f} s)")
+    lap("mp-stack")
+
     # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
@@ -3406,7 +3915,8 @@ def main() -> int:
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_path[kname],
          "hosford_launches": hosford_path[kname],
-         "elastic_launches": elastic_path[kname], "max_abs_err": err,
+         "elastic_launches": elastic_path[kname],
+         "mp_launches": mp_counts.get(kname, 0), "max_abs_err": err,
          "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],
          "bound_by": bounds[kname][1], "library_ms": lib, "cold_ms": cold,

@@ -3,10 +3,10 @@ parameters): the initial guess, the optimizer's status and the labels of
 the active parameters.
 
 Port of the helpers of ``cmad_tpu/cli/calibrate.py`` (parity: reference
-``cmad/cli/calibrate.py:57-194``). The command's FE branch is
+``cmad/cli/calibrate.py:57-194``). The command's branches are
+``cli/mp_subcommands.run_calibrate_mp`` and
 ``cli/fe_subcommands.run_calibrate_fe``, which ``cli/main.py`` reaches
-through ``cli/common.run_command``; the MP arm is ROADMAP queue 1, item
-23.
+through ``cli/common.run_command``.
 """
 from __future__ import annotations
 

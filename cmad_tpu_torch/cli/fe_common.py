@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from cmad_tpu_torch import config
+from cmad_tpu_torch.cli.common import with_material_defaults
 from cmad_tpu_torch.fem.bcs import DirichletBC
 from cmad_tpu_torch.fem.dof import GlobalFieldLayout, build_dof_map
 from cmad_tpu_torch.fem.elements import P1_TET, Q1_HEX, FiniteElement
@@ -427,23 +428,10 @@ def _default_subcommand(resolved: dict[str, Any]) -> str:
 
 
 def _deck_tols(section, kind: str, dtype: torch.dtype) -> tuple[float, float]:
-    """The section's Newton tolerances. Decks are written against the
-    float64 tolerances; in float32 they are raised to that dtype's floor
-    (``config.newton_tols``), as the JAX package's f32 policy did."""
-    abs_tol = float(section["nonlinear absolute tol"])
-    rel_tol = float(section["nonlinear relative tol"])
-    if dtype == torch.float64:
-        return abs_tol, rel_tol
-    floor_abs, floor_rel = config.newton_tols(kind, dtype)
-    return max(abs_tol, floor_abs), max(rel_tol, floor_rel)
-
-
-def _with_material_defaults(params_section: dict[str, Any],
-                            model_cls: type[Model]) -> dict[str, Any]:
-    merged = dict(params_section)
-    for key, default in model_cls.material_defaults().items():
-        merged.setdefault(key, default)
-    return merged
+    """The section's Newton tolerances (``config.clamp_newton_tols``)."""
+    return config.clamp_newton_tols(
+        float(section["nonlinear absolute tol"]),
+        float(section["nonlinear relative tol"]), kind, dtype)
 
 
 def _build_models(local_section, mesh, def_type, dtype,
@@ -457,8 +445,8 @@ def _build_models(local_section, mesh, def_type, dtype,
     return {
         b: model_cls.from_deck(
             local_section,
-            build_parameters(_with_material_defaults(materials[b],
-                                                     model_cls),
+            build_parameters(with_material_defaults(materials[b],
+                                                    model_cls),
                              dtype=dtype, device=device),
             def_type)
         for b in materials}

@@ -23,7 +23,6 @@ The driver is the deck's ``global residual.driver``:
 """
 from __future__ import annotations
 
-import copy
 from pathlib import Path
 from typing import Any
 
@@ -36,7 +35,7 @@ from cmad_tpu_torch.cli.calibrate import (
     optimize_status,
     resolve_initial_guess,
 )
-from cmad_tpu_torch.cli.common import resolve_output
+from cmad_tpu_torch.cli.common import Deck, resolve_output, with_out_dir
 from cmad_tpu_torch.cli.fe_common import (
     FEProblemBundle,
     build_fe_cases,
@@ -64,18 +63,11 @@ from cmad_tpu_torch.io.writers import (
     write_solver_log,
 )
 
-Deck = Path | str | dict[str, Any]
-
 
 def _bundle(deck: Deck, subcommand: str, out_dir, dtype,
             device) -> FEProblemBundle:
-    if out_dir is not None:
-        if not isinstance(deck, dict):
-            raise ValueError("out_dir goes with a deck given as a dict; a "
-                             "deck file names its own output path")
-        deck = copy.deepcopy(deck)
-        deck["output"] = {**deck.get("output", {}), "path": str(out_dir)}
-    return build_fe_problem_from_deck(deck, subcommand, dtype=dtype,
+    return build_fe_problem_from_deck(with_out_dir(deck, out_dir),
+                                      subcommand, dtype=dtype,
                                       device=device)
 
 

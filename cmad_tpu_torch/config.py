@@ -58,3 +58,15 @@ def newton_tols(kind: str = "mp_local",
     else:
         raise ValueError(f"newton_tols: unsupported dtype {dtype}")
     return table[kind]
+
+
+def clamp_newton_tols(abs_tol: float, rel_tol: float, kind: str,
+                      dtype: torch.dtype) -> tuple[float, float]:
+    """A deck's Newton tolerances in ``dtype``. Decks are written against
+    the float64 tolerances, which float64 keeps; in float32 they are
+    raised to that dtype's floor (:func:`newton_tols`), as the JAX
+    package's f32 policy did."""
+    if dtype == torch.float64:
+        return abs_tol, rel_tol
+    floor_abs, floor_rel = newton_tols(kind, dtype)
+    return max(abs_tol, floor_abs), max(rel_tol, floor_rel)

@@ -9,9 +9,9 @@ Names are also discoverable
 without import through the schema fragments,
 ``cmad_tpu_torch/io/schemas/<kind>/<name>.yaml`` (the port's copy of the
 JAX package's, file for file), read by path. A name with a fragment but
-no module in the port yet raises ``NotImplementedError`` naming the
-ROADMAP item that ports it (``_NOT_PORTED``); a name with neither raises
-``KeyError``.
+no module in the port raises ``NotImplementedError``, naming the
+ROADMAP item that ports it where ``_NOT_PORTED`` lists one; a name with
+neither raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -27,10 +27,8 @@ _SCHEMA_DIR = Path(__file__).resolve().parent / "schemas"
 
 # (schema subdirectory, name) -> the ROADMAP queue 1 item that ports it,
 # for every name the schema copy advertises whose module the port lacks
-_NOT_PORTED = {
-    ("qois", "calibration"): 23,
-    ("qois", "uniaxial_calibration"): 23,
-}
+# (none since the material-point QoIs came)
+_NOT_PORTED: dict[tuple[str, str], int] = {}
 
 
 def _register(registry: dict[str, type], name: str) -> Callable[[type], type]:
@@ -49,10 +47,12 @@ def _resolve(registry: dict[str, type], name: str, package: str,
         except ImportError as e:
             if (getattr(e, "name", None) == module
                     and (_SCHEMA_DIR / subdir / f"{name}.yaml").is_file()):
+                item = _NOT_PORTED.get((subdir, name))
+                where = "" if item is None else \
+                    f": ROADMAP queue 1, item {item}"
                 raise NotImplementedError(
                     f"{kind} {name!r} is in the schema but not ported "
-                    f"yet: ROADMAP queue 1, item "
-                    f"{_NOT_PORTED[(subdir, name)]}") from e
+                    f"yet{where}") from e
             raise KeyError(
                 f"no registered {kind} named {name!r} "
                 f"(import of {module} failed: {e})") from e

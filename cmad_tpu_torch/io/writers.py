@@ -1,11 +1,12 @@
-"""Output writers of the deck commands (the FE set).
+"""Output writers of the deck commands.
 
-Port of the FE-side writers of ``cmad_tpu/io/writers.py`` (parity:
-reference ``cmad/io/writers.py:63-496``). Artifacts: ``solver.json``,
-``J.json``, ``grad``/``hess`` ``.npy`` or ``.csv``, ``deck.resolved.yaml``,
-``opt_history.json``, ``opt_params.yaml``, ``opt_status.json``. The
-material-point trajectory writers (``cauchy``, ``xi``) come with the MP
-commands (ROADMAP queue 1, item 23).
+Port of ``cmad_tpu/io/writers.py`` (parity: reference
+``cmad/io/writers.py:63-496``). Artifacts: the material-point
+trajectories ``cauchy`` ((3, 3, N+1)) and ``xi`` ((N+1, num_dofs), with
+one ``xi_block_NN`` file per state variable) as ``.npy`` or ``.csv``,
+``solver.json``, ``J.json``, ``grad``/``hess`` ``.npy`` or ``.csv``,
+``deck.resolved.yaml``, ``opt_history.json``, ``opt_params.yaml``,
+``opt_status.json``.
 
 The YAML files are written by :func:`dump_yaml`, a small block-style
 emitter of this package (dicts, lists, strings, numbers, bools, None), so
@@ -119,6 +120,40 @@ def _check_fmt(fmt: str) -> None:
     if fmt not in ("npy", "text"):
         raise ValueError(f"output.format: expected 'npy' or 'text', got "
                          f"{fmt!r}")
+
+
+_CAUCHY_HEADER = "S11 S12 S13 S21 S22 S23 S31 S32 S33"
+
+
+def write_cauchy(out_dir: Path, prefix: str, cauchy, fmt: str) -> None:
+    """The (3, 3, N+1) stress trajectory; as text, one row of nine
+    components per step."""
+    _check_fmt(fmt)
+    if fmt == "npy":
+        np.save(out_dir / f"{prefix}cauchy.npy", cauchy)
+    else:
+        flat = np.asarray(cauchy).transpose(2, 0, 1).reshape(-1, 9)
+        np.savetxt(out_dir / f"{prefix}cauchy.csv", flat,
+                   header=_CAUCHY_HEADER, delimiter=",")
+
+
+def write_xi(out_dir: Path, prefix: str, xi_trajectory, layout,
+             fmt: str) -> None:
+    """The flat state trajectory ``xi_trajectory`` (N+1, num_dofs) and
+    one file per variable of the model's ``layout``."""
+    _check_fmt(fmt)
+    xi = np.asarray(xi_trajectory)
+    if fmt == "npy":
+        np.save(out_dir / f"{prefix}xi.npy", xi)
+    else:
+        np.savetxt(out_dir / f"{prefix}xi.csv", xi, delimiter=",")
+    for k, name in enumerate(layout.var_names):
+        block = xi[:, layout.slc(name)]
+        if fmt == "npy":
+            np.save(out_dir / f"{prefix}xi_block_{k:02d}.npy", block)
+        else:
+            np.savetxt(out_dir / f"{prefix}xi_block_{k:02d}.csv", block,
+                       delimiter=",")
 
 
 def write_solver_log(out_dir: Path, prefix: str,

@@ -24,8 +24,10 @@ def _eye(n: int, like: Tensor) -> Tensor:
 
 def _embed_2d(F2: Tensor, f33: Tensor | float) -> Tensor:
     """3x3 from a 2x2 block and the (3, 3) entry."""
-    e33 = torch.zeros((3, 3), dtype=F2.dtype, device=F2.device)
-    e33[2, 2] = 1.0
+    # built on the device, with no write from the host (a CUDA graph
+    # can capture it)
+    e33 = tnf.pad(torch.ones((1, 1), dtype=F2.dtype, device=F2.device),
+                  (2, 0, 2, 0))
     return tnf.pad(F2, (0, 1, 0, 1)) + f33 * e33
 
 

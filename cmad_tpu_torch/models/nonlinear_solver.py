@@ -52,9 +52,13 @@ class _Newton:
     as for ``torch.func.vmap``)."""
 
     def __init__(self, residual, in_dims, max_iters, abs_tol, rel_tol,
-                 line_search_settings, print_local_convergence=False):
+                 line_search_settings, print_local_convergence=False,
+                 graphs: dict | None = None):
         self.r_b = vmap(residual, in_dims=(0, *in_dims))
         self.j_b = vmap(jacfwd(residual, argnums=0), in_dims=(0, *in_dims))
+        # with a dict, the CUDA graphs of r_b and j_b, keyed by their
+        # inputs' structure (see evaluators)
+        self.graphs = graphs
         self.max_iters = max_iters
         self.abs_tol, self.rel_tol = abs_tol, rel_tol
         self.ls = {**DEFAULT_LINE_SEARCH_SETTINGS,
@@ -69,12 +73,35 @@ class _Newton:
         return (d_abs if self.abs_tol is None else self.abs_tol,
                 d_rel if self.rel_tol is None else self.rel_tol)
 
+    def evaluators(self, x: Tensor, args: tuple):
+        """``(r_of(x), j_of(x))``: the residual and its Jacobian at ``x``
+        with ``args`` fixed. On a CUDA tensor with ``graphs`` set they
+        replay CUDA graphs of ``r_b`` and ``j_b`` (:class:`_CudaGraph`,
+        captured at the first call with inputs of this structure): the
+        same kernels without the host's eager dispatch of each, which
+        sets the pace of a single point's Newton. Otherwise they are
+        ``r_b`` and ``j_b``."""
+        if self.graphs is None or not x.is_cuda:
+            return (lambda y: self.r_b(y, *args),
+                    lambda y: self.j_b(y, *args))
+        spec = _Args(args)
+        key = (x.shape, x.dtype, spec.key())
+        if key not in self.graphs:
+            self.graphs[key] = tuple(
+                _CudaGraph(lambda y, *lv, f=f: f(y, *spec(lv)),
+                           [x, *spec.tensors])
+                for f in (self.r_b, self.j_b))
+        r_g, j_g = self.graphs[key]
+        return (lambda y: r_g(y, *spec.tensors),
+                lambda y: j_g(y, *spec.tensors))
+
     def __call__(self, x0: Tensor, args: tuple) -> tuple[Tensor, Tensor,
                                                           Tensor]:
         """(x*, iterations, final ||r||), each per point."""
         abs_tol, rel_tol = self.tols(x0.dtype)
+        r_of, j_of = self.evaluators(x0, args)
         x = x0
-        r = self.r_b(x, *args)
+        r = r_of(x)
         norm0 = torch.linalg.vector_norm(r, dim=-1)
         iters = torch.zeros(x.shape[:1], dtype=torch.int64, device=x.device)
         done = 0
@@ -87,11 +114,11 @@ class _Newton:
             if self.print:
                 print(f"  ({k + 1}) abs ||C|| = {float(norm.max()):.6e} "
                       f"rel ||C|| = {float((norm / norm0).max()):.6e}")
-            J = self.j_b(x, *args)
+            J = j_of(x)
             dx = torch.linalg.solve_ex(J, r.unsqueeze(-1))[0].squeeze(-1)
 
             def probe(alpha, x=x, dx=dx):
-                r_trial = self.r_b(x - alpha[:, None] * dx, *args)
+                r_trial = r_of(x - alpha[:, None] * dx)
                 return 0.5 * (r_trial * r_trial).sum(-1), None, r_trial
 
             rr = (r * r).sum(-1)
@@ -121,6 +148,42 @@ class _Args:
         it = iter(tensors)
         leaves = [next(it) if c is None else c for c in self.consts]
         return pytree.tree_unflatten(leaves, self.spec)
+
+    def key(self) -> tuple:
+        """The structure the args' values fill: the spec, the plain
+        numbers, and each tensor's shape and dtype."""
+        return (str(self.spec), repr(self.consts),
+                tuple((t.shape, t.dtype) for t in self.tensors))
+
+
+class _CudaGraph:
+    """``fn(*inputs)`` (CUDA tensors in, one tensor out) captured once in
+    a CUDA graph. A call copies its inputs into the captured ones,
+    replays the graph and returns a copy of the captured output: the
+    same kernels as an eager call of ``fn``, launched without the host's
+    per-operation dispatch. ``fn`` must not read anything back to the
+    host (the model residuals are written so). Primal only: it runs
+    under ``no_grad``."""
+
+    def __init__(self, fn, inputs) -> None:
+        with torch.no_grad():
+            self._in = [t.detach().clone() for t in inputs]
+            # warm up on a side stream, as capture requires
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*self._in)
+            torch.cuda.current_stream().wait_stream(side)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph):
+                self._out = fn(*self._in)
+
+    def __call__(self, *inputs) -> Tensor:
+        with torch.no_grad():
+            for held, t in zip(self._in, inputs, strict=True):
+                held.copy_(t)
+            self._graph.replay()
+            return self._out.clone()
 
 
 class _ImplicitSolve(torch.autograd.Function):
@@ -152,7 +215,10 @@ class _ImplicitSolve(torch.autograd.Function):
                 if need]
         grads: list[Tensor | None] = [None] * len(leaves)
         if want:
-            A = newton.j_b(x_star, *spec(leaves))
+            # a first-order backward may replay the Newton's graph; one
+            # that builds a graph (create_graph) differentiates j_b itself
+            A = (newton.j_b(x_star, *spec(leaves)) if torch.is_grad_enabled()
+                 else newton.evaluators(x_star, spec(leaves))[1](x_star))
             lam = torch.linalg.solve(A.mT, x_bar.unsqueeze(-1)).squeeze(-1)
 
             def r_of(*chosen):
@@ -194,6 +260,7 @@ def make_newton_solve(
         print_local_convergence: bool = False,
         line_search_settings: dict[str, Any] | None = None,
         in_dims: tuple | None = None,
+        cuda_graphs: bool = False,
 ) -> Callable[..., Tensor]:
     """Newton solve of ``residual(x, *args) = 0`` from guess ``x0``.
 
@@ -205,13 +272,18 @@ def make_newton_solve(
     and ``in_dims`` gives each argument's batch axis (None = shared),
     as ``jax.vmap(solve, in_axes=(0, *in_dims))`` did in the JAX
     package. Default tolerances come from ``config.newton_tols`` for the
-    dtype of ``x0``.
+    dtype of ``x0``. With ``cuda_graphs``, a solve on the card replays
+    CUDA graphs of the residual and its Jacobian, captured once per
+    structure of the inputs and kept by this solver
+    (:meth:`_Newton.evaluators`); the material-point commands use it.
     """
+    graphs: dict | None = {} if cuda_graphs else None
+
     def solve(x0: Tensor, *args) -> Tensor:
         single = in_dims is None
         newton = _Newton(residual, _in_dims(in_dims, args), max_iters,
                          abs_tol, rel_tol, line_search_settings,
-                         print_local_convergence)
+                         print_local_convergence, graphs)
         spec = _Args(args)
         x = _ImplicitSolve.apply(x0[None] if single else x0, newton, spec,
                                  *spec.tensors)
@@ -304,17 +376,22 @@ def make_newton_solve_with_stats(
         rel_tol: float | None = None,
         line_search_settings: dict[str, Any] | None = None,
         in_dims: tuple | None = None,
+        cuda_graphs: bool = False,
 ) -> Callable[..., tuple[Tensor, Tensor, Tensor]]:
     """Newton returning ``(x*, iters, final_norm)``, per point when
-    batched (``in_dims`` as in :func:`make_newton_solve`).
+    batched (``in_dims`` and ``cuda_graphs`` as in
+    :func:`make_newton_solve`).
 
     Primal only, for solver diagnostics: it runs under ``no_grad`` and
     its results carry no gradient. Use :func:`make_newton_solve` for AD.
     """
+    graphs: dict | None = {} if cuda_graphs else None
+
     def solve(x0: Tensor, *args):
         single = in_dims is None
         newton = _Newton(residual, _in_dims(in_dims, args), max_iters,
-                         abs_tol, rel_tol, line_search_settings)
+                         abs_tol, rel_tol, line_search_settings,
+                         graphs=graphs)
         with torch.no_grad():
             x, iters, norm = newton(x0[None] if single else x0, args)
         if single:

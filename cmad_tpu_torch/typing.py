@@ -3,9 +3,11 @@
 from __future__ import annotations
 
 from collections.abc import Callable
-from typing import Any
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
+from numpy.typing import NDArray
 
 Tensor = torch.Tensor
 Scalar = float | Tensor
@@ -21,3 +23,15 @@ Transforms = PyTree
 # a GlobalFieldsAtPoint.
 ResidualFn = Callable[..., Tensor]  # (xi, xi_prev, params, U, U_prev) -> C
 CauchyFn = Callable[..., Tensor]    # (xi, xi_prev, params, U, U_prev) -> (3,3)
+QoIFn = Callable[..., Tensor]  # (xi, xi_prev, params, U, U_prev, data, w)
+
+
+class GradientResult(NamedTuple):
+    J: float
+    grad: NDArray[np.floating]
+
+
+class HessianResult(NamedTuple):
+    J: float
+    grad: NDArray[np.floating]
+    hessian: NDArray[np.floating]

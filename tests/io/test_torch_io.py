@@ -283,24 +283,168 @@ def _notch_deck():
 ])
 def test_advertised_but_unported_names_raise_with_their_item(where, name,
                                                              item):
-    """A deck naming a model or QoI that the schema copy advertises but the
-    port has no module for raises NotImplementedError naming its ROADMAP
-    item, where it raised a KeyError about a missing module."""
+    """The names that raised NotImplementedError naming their ROADMAP item
+    (``item``) until the port had their modules now resolve: the
+    material-point QoIs. An FE deck naming one raises cmad_tpu's
+    problem-type error."""
     from cmad_tpu_torch.cli.fe_common import build_fe_problem_from_deck
-    from cmad_tpu_torch.io.registry import (
-        registered_model_names,
-        registered_qoi_names,
-    )
+    from cmad_tpu_torch.io.registry import registered_qoi_names, resolve_qoi
 
+    assert where == "qoi" and item == 23
+    assert name in registered_qoi_names()
+    assert resolve_qoi(name).problem_type == "material_point"
     deck = _notch_deck()
-    if where == "model":
-        assert name in registered_model_names()
-        deck["residuals"]["local residual"]["type"] = name
-    else:
-        assert name in registered_qoi_names()
-        deck["qoi"] = {"name": name}
-    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
+    deck["qoi"] = {"name": name}
+    with pytest.raises(ValueError, match="problem_type='material_point'"):
         build_fe_problem_from_deck(deck, dtype=torch.float64, device="cpu")
+
+
+def test_a_fragment_without_a_module_raises_not_implemented(tmp_path,
+                                                            monkeypatch):
+    """A schema fragment whose module the port lacks raises
+    NotImplementedError, naming the ROADMAP item when ``_NOT_PORTED``
+    lists one and without one when it does not (it lists none now)."""
+    from cmad_tpu_torch.io import registry
+
+    (tmp_path / "qois").mkdir()
+    (tmp_path / "qois" / "made_up_qoi.yaml").write_text("type: object\n")
+    monkeypatch.setattr(registry, "_SCHEMA_DIR", tmp_path)
+    assert registry._NOT_PORTED == {}
+    with pytest.raises(NotImplementedError, match=r"not ported yet$"):
+        registry.resolve_qoi("made_up_qoi")
+    monkeypatch.setitem(registry._NOT_PORTED, ("qois", "made_up_qoi"), 99)
+    with pytest.raises(NotImplementedError, match=r"item 99$"):
+        registry.resolve_qoi("made_up_qoi")
+    with pytest.raises(KeyError):
+        registry.resolve_qoi("no_such_qoi")
+
+
+def _history_cases(tmp_path):
+    """(name, deformation section, expected ndims) for each layout the
+    loader reads, on the same (2, 2, 5) history."""
+    rng = np.random.default_rng(3)
+    F = np.eye(2)[:, :, None] + rng.normal(0.0, 1e-2, (2, 2, 5))
+    steps = F.transpose(2, 0, 1)
+    np.save(tmp_path / "nnN.npy", F)
+    np.save(tmp_path / "Nnn.npy", steps)
+    np.save(tmp_path / "tie.npy", F[:, :, :2])  # N == n: (n, n, N) wins
+    np.savetxt(tmp_path / "F.csv", steps.reshape(5, 4), delimiter=",")
+    np.savetxt(tmp_path / "F.txt", steps.reshape(5, 4))
+    return [("npy_nnN", {"history_file": str(tmp_path / "nnN.npy")}),
+            ("npy_Nnn", {"history_file": str(tmp_path / "Nnn.npy")}),
+            ("npy_tie", {"history_file": str(tmp_path / "tie.npy")}),
+            ("csv", {"history_file": str(tmp_path / "F.csv")}),
+            ("txt", {"history_file": str(tmp_path / "F.txt")}),
+            ("inline", {"inline": steps.tolist()})]
+
+
+def _history_errors(tmp_path):
+    """(name, deformation section, expected ndims), each an error."""
+    np.save(tmp_path / "bad.npy", np.zeros((2, 3, 4)))
+    np.savetxt(tmp_path / "cols.csv", np.zeros((4, 3)), delimiter=",")
+    (tmp_path / "F.dat").write_text("1 0 0 1\n")
+    np.save(tmp_path / "ok.npy", np.repeat(np.eye(2)[:, :, None], 3, 2))
+    return [("missing", {"history_file": str(tmp_path / "none.npy")}, 2),
+            ("extension", {"history_file": str(tmp_path / "F.dat")}, 2),
+            ("columns", {"history_file": str(tmp_path / "cols.csv")}, 2),
+            ("npy_shape", {"history_file": str(tmp_path / "bad.npy")}, 2),
+            ("inline_shape", {"inline": [[[1.0, 0.0]], [[1.0, 0.0]]]}, 2),
+            ("neither", {}, 2),
+            ("ndims", {"history_file": str(tmp_path / "ok.npy")}, 3)]
+
+
+def test_load_history_reads_every_format_as_cmad_tpu(tmp_path):
+    from cmad_tpu.io.deformation import load_history as jax_load
+
+    from cmad_tpu_torch.io.deformation import load_history
+
+    cases = _history_cases(tmp_path)
+    for name, section in cases:
+        F, F_ref = load_history(section, 2), jax_load(section, 2)
+        assert F.dtype == np.float64 and F_ref.dtype == np.float64, name
+        assert np.array_equal(F, F_ref), name
+        expected = (2, 2, 2) if name == "npy_tie" else (2, 2, 5)
+        assert F.shape == expected, name
+    full = load_history(cases[0][1], 2)
+    for _name, section in cases[1:]:
+        if "tie" not in _name:
+            assert np.array_equal(load_history(section, 2), full), _name
+
+
+@pytest.mark.parametrize("case", ["missing", "extension", "columns",
+                                  "npy_shape", "inline_shape", "neither",
+                                  "ndims"])
+def test_load_history_errors_match_cmad_tpu(tmp_path, case):
+    from cmad_tpu.io.deformation import load_history as jax_load
+
+    from cmad_tpu_torch.io.deformation import load_history
+
+    section, ndims = {n: (s, d) for n, s, d in _history_errors(tmp_path)}[
+        case]
+    errors = []
+    for load in (jax_load, load_history):
+        with pytest.raises((ValueError, FileNotFoundError)) as e:
+            load(section, ndims)
+        errors.append((type(e.value), str(e.value)))
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("fmt", ["npy", "text"])
+def test_mp_writers_write_cmad_tpus_files(tmp_path, fmt):
+    """``write_cauchy`` and ``write_xi`` (with its per-variable files) on
+    the same trajectory: the same file names; npy files byte-equal, CSV
+    files equal as numbers."""
+    from cmad_tpu.io import writers as jax_writers
+    from cmad_tpu.models.state import StateBlock as JaxBlock
+    from cmad_tpu.models.state import StateLayout as JaxLayout
+
+    from cmad_tpu_torch.io import writers
+    from cmad_tpu_torch.models.small_rate_elastic_plastic import (
+        _build_layout,
+    )
+    from cmad_tpu_torch.models.deformation_types import DefType
+
+    rng = np.random.default_rng(4)
+    cauchy = rng.normal(size=(3, 3, 6))
+    layout = _build_layout(DefType.UNIAXIAL_STRESS)
+    xi = rng.normal(size=(6, layout.num_dofs))
+    jax_layout = JaxLayout([JaxBlock(b.var_name, b.resid_name, b.var_type,
+                                     b.size, b.init) for b in layout.blocks])
+    dirs = {}
+    for side, (w, lay) in {"jax": (jax_writers, jax_layout),
+                           "port": (writers, layout)}.items():
+        out = dirs[side] = tmp_path / side
+        out.mkdir()
+        w.write_cauchy(out, "p_", cauchy, fmt)
+        w.write_xi(out, "p_", xi, lay, fmt)
+    names = sorted(p.name for p in dirs["jax"].iterdir())
+    assert names == sorted(p.name for p in dirs["port"].iterdir())
+    assert len(names) == 2 + len(layout.var_names)
+    for name in names:
+        a, b = dirs["port"] / name, dirs["jax"] / name
+        if fmt == "npy":
+            assert filecmp.cmp(a, b, shallow=False), name
+        else:
+            assert a.read_text().splitlines()[0] == \
+                b.read_text().splitlines()[0]
+            assert np.allclose(np.loadtxt(a, delimiter=","),
+                               np.loadtxt(b, delimiter=","), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="output.format"):
+        writers.write_cauchy(tmp_path, "", cauchy, "hdf5")
+
+
+def test_mp_U_from_F_matches_cmad_tpu():
+    from cmad_tpu.models.global_fields import mp_U_from_F as jax_U
+
+    from cmad_tpu_torch.models.global_fields import mp_U_from_F
+
+    F = np.random.default_rng(5).normal(size=(4, 2, 2))
+    U, U_ref = mp_U_from_F(torch.as_tensor(F)), jax_U(F)
+    assert U.grad_fields["u"].dtype == torch.float64
+    for a, b in ((U.fields["u"], U_ref.fields["u"]),
+                 (U.grad_fields["u"], U_ref.grad_fields["u"])):
+        assert a.shape == b.shape
+        assert np.array_equal(a.numpy(), np.asarray(b))
 
 
 def test_elastic_resolves_and_binds_closed_form_with_its_guards():

@@ -172,8 +172,9 @@ def test_port_imports_neither_jax_nor_cmad_tpu():
     interpreter, leaves jax and cmad_tpu out of sys.modules, and the deck
     parsers too (yaml, jsonschema, h5py: the GPU host has none of them,
     and the FE entry points and commands take the deck as a dict). The
-    walk covers the ``cli``, ``io`` and ``util`` subpackages, the
-    commands and ``python -m cmad_tpu_torch``'s ``__main__``."""
+    walk covers the ``cli``, ``io``, ``util``, ``qois`` and ``objectives``
+    subpackages, the commands and ``python -m cmad_tpu_torch``'s
+    ``__main__``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cmad_tpu_torch\n"
@@ -193,7 +194,12 @@ def test_port_imports_neither_jax_nor_cmad_tpu():
         "'cmad_tpu_torch.io.writers', 'cmad_tpu_torch.io.fe_writers', "
         "'cmad_tpu_torch.io.exodus', 'cmad_tpu_torch.io.results', "
         "'cmad_tpu_torch.io.restart', 'cmad_tpu_torch.fem.postprocess', "
-        "'cmad_tpu_torch.util.profiling'} <= set(names)\n"
+        "'cmad_tpu_torch.util.profiling', "
+        "'cmad_tpu_torch.cli.mp_subcommands', "
+        "'cmad_tpu_torch.cli.sensitivity', "
+        "'cmad_tpu_torch.objectives.mp_jvp_objective', "
+        "'cmad_tpu_torch.qois.uniaxial_calibration', "
+        "'cmad_tpu_torch.io.deformation'} <= set(names)\n"
         "print('imported', len([k for k in sys.modules "
         "if k.startswith('cmad_tpu_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
