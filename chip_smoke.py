@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive cmad_tpu_torch's J2+Voce return-map path, the Hosford notch deck,
-the elastic notch and the material-point stack once on one NVIDIA GPU.
+the elastic notch, the material-point stack and the notch loaded by a
+traction and a body force once on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -133,7 +134,17 @@ the built library's SASS counts them). The paths driven:
   (adjoint, L-BFGS-B) back to the truth, and the
   sensitivity rules' errors; on ``small_elastic_plastic`` in uniaxial
   stress (100 steps, ``uniaxial_calibration``) the primal's time per step
-  and one evaluation per strategy against cmad_tpu's.
+  and one evaluation per strategy against cmad_tpu's;
+- the loaded notch (fe-loads): the J2 notch deck with a traction on
+  ``ymax_sides`` and a body force in place of its displacement load
+  (``LOADS``, the ``surface flux bcs`` and ``body forces`` sections), the
+  records' solver, at 47,628 tets against cmad_tpu's ||U|| per step, the
+  force balance of reactions, tractions and body force, twice bit for
+  bit, ``j2_soa_step`` once per assembly, the Neumann plan's segment sum
+  against ``index_add_``; its stepped gradient at 480 tets against
+  cmad_tpu's and timed at 47,628; the manufactured-solution cube with an
+  exact traction and body force on the port's ``StructuredHexMesh`` at 4,
+  8 and 16 hexes a side (the L2 rate, and the card against the CPU).
 
 Before the paths, ``j2_soa_step`` is held to its plain version at
 1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
@@ -498,6 +509,47 @@ ELASTIC_FD_H, ELASTIC_FD_RTOL = 1e-3, 1e-3
 # and CG at 1e-10: they differ by the local Newton's tolerance (1e-12) on
 # each point's state (1.9e-11 in U on the CPU with direct solves)
 FE_PRINT_BOUND = 1e-9
+# the loaded notch (fe-loads): the J2 notch deck with a traction on
+# ymax_sides and a body force in place of its displacement load_y, the
+# three symmetry clamps kept (tools/fe_notch_reference.py --loads): at t =
+# 4 the nominal traction is 3.0, past Y = 2 on the net section
+LOADS = {"surface flux bcs": {"expression": {
+             "traction_y": ["equilibrium", "ymax_sides", "0.0", "0.75 * t",
+                            "0.0"]}},
+         "body forces": {"expression": {
+             "gravity_y": ["equilibrium", "0.0", "-0.5 * t", "0.0"]}}}
+TRACTION_PER_T, BODY_PER_T = (0.0, 0.75, 0.0), (0.0, -0.5, 0.0)
+# cmad_tpu on the CPU in f64 with sparse-direct solves, the stepped driver,
+# Newton cap 50 (tools/fe_notch_reference.py --mesh notch_h0.015.exo
+# --max-iters 50 --loads, jax 0.9.0; the drive took 109 s on the CPU
+# host): ||U|| and max |alpha| after each step
+FE_LOADS_REF_U_NORMS = (0.026022557005355922, 0.05204576994411688,
+                        0.07870346975802175, 0.4183639601435739)
+FE_LOADS_REF_ALPHA_MAX = (0.0, 3.5054713569929355e-05,
+                          0.0015714719192439263, 0.027036538932039247)
+# at 480 tets (--mesh notch_h0.080.exo --max-iters 50 --loads --gradient):
+# J and dJ/dc of the notch calibration on the loaded drive (Y = 2.6 under
+# the log transform about 2.0, against the drive at Y = 2.0), held to
+# FE_GRAD_J_RTOL and FE_GRAD_G_RTOL
+FE_LOADS_GRAD_REF_J = 3.1820804356752244
+FE_LOADS_GRAD_REF_DJ_DC = 1.353145243055288
+# the force balance at the last step: the Dirichlet reactions (R on the
+# prescribed dofs) + the integral of t dA + the integral of b dV, each
+# component, within FORCE_BALANCE_RTOL of |integral of t dA|: what is left
+# is the sum of R over the free dofs, the Newton's 1e-8 relative residual
+FORCE_BALANCE_RTOL = 1e-8
+# the manufactured-solution cube of cmad_tpu's tests/fem/
+# test_mms_cube_neumann.py (elastic, the exact traction on xmax_sides, the
+# exact body force, u_exact on the other faces) at n x n x n hexes from the
+# port's StructuredHexMesh: the L2 error's rate above MMS_RATE between
+# consecutive sizes, and the card's U at the first size against the port's
+# on the CPU (direct solves) to MMS_CPU_BOUND of max|U| (both Newtons at
+# 1e-12 of a linear problem; 1.4e-15 between CG at 1e-10 and direct on the
+# CPU at n = 4)
+MMS_N = (4, 8, 16)
+MMS_E, MMS_NU = 1000.0, 0.3
+MMS_RATE = 1.9
+MMS_CPU_BOUND = 1e-12
 SEGSUM_SOURCE = "cmad_tpu_torch/csrc/segment_sum.cu"
 # R: the roofline experiment's kernel, at its shapes (ops/roofline.py)
 ROOFLINE = "benchmarks/local_kernels/roofline_experiment.py"
@@ -580,6 +632,48 @@ def notch_deck(mesh: str, solver: dict, effective_stress: str = "J2"
             "load_y": ["equilibrium", 1, "ymax_sides", "0.01 * t"]}},
         "linear solver": dict(solver),
     }
+
+
+def loaded_deck(deck: dict) -> dict:
+    """``deck`` (a notch deck) loaded by LOADS in place of its
+    displacement ``load_y``."""
+    deck = copy.deepcopy(deck)
+    del deck["dirichlet bcs"]["expression"]["load_y"]
+    return {**deck, **copy.deepcopy(LOADS)}
+
+
+def mms_functions():
+    """The manufactured solution's ``(u_exact, traction on x = 1, body
+    force)`` as batched host callables ``(coords (n, 3), t) -> (n, 3)``
+    (t times the field), with E = MMS_E and nu = MMS_NU."""
+    import sympy as sp
+
+    x, y, z = sp.symbols("x y z")
+    s = 0.01
+    u = sp.Matrix([
+        s * sp.sin(sp.pi * x) * sp.sin(sp.pi * y) * sp.sin(sp.pi * z),
+        s * sp.cos(sp.pi * x) * sp.sin(sp.pi * y) * sp.sin(sp.pi * z),
+        s * sp.sin(sp.pi * x) * sp.cos(sp.pi * y) * sp.sin(sp.pi * z)])
+    X = (x, y, z)
+    grad_u = u.jacobian(X)
+    eps = (grad_u + grad_u.T) / 2
+    lam = MMS_E * MMS_NU / ((1 + MMS_NU) * (1 - 2 * MMS_NU))
+    mu = MMS_E / (2 * (1 + MMS_NU))
+    sigma = lam * eps.trace() * sp.eye(3) + 2 * mu * eps
+    traction = sigma @ sp.Matrix([1, 0, 0])
+    body = -sp.Matrix([sum(sp.diff(sigma[i, j], X[j]) for j in range(3))
+                       for i in range(3)])
+
+    def batched(expr):
+        fn = sp.lambdify(X, list(expr), modules="numpy")
+
+        def at(coords, t):
+            vals = fn(coords[:, 0], coords[:, 1], coords[:, 2])
+            return t * np.stack(np.broadcast_arrays(*vals), axis=-1)
+
+        return at
+
+    return batched(u), batched(traction), batched(body)
 
 
 def elastic_deck(mesh: str, solver: dict, elastic_stress: str) -> dict:
@@ -2150,6 +2244,74 @@ def main() -> int:
                 "k1_bound": (b_ms, by, t_bytes, t_ops), "n": n,
                 "asm_ms": asm_ms, "asm_dev": asm_dev}
 
+    def check_plan(phase, label, plan, width):
+        """segment_sum over ``plan`` (entries of ``width``) on random
+        values: on the path the plan picks and every other path that takes
+        its width, against index_add_ on the CPU bit for bit; timed on the
+        device warm and cold beside index_add_ on the card (int32 index),
+        with its byte bound. Returns (max abs err, (warm, cold), (index_add_
+        warm, cold) twice, bound ms)."""
+        vals = torch.randn((plan.n_entries, *width), generator=gen,
+                           device=dev, dtype=torch.float64)
+        scale = (torch.randn(plan.n_entries, generator=gen, device=dev,
+                             dtype=torch.float64)
+                 if label == "two-level restriction" else None)
+        w = int(np.prod(width, dtype=np.int64))
+        path = segsum.segment_path(plan, w)
+        seg_out = segsum.segment_sum(vals, plan, scale)
+        if plan.target is None:      # entries outside every segment
+            idx, src = plan.sorted_target, vals[plan.perm]
+        else:
+            idx, src = plan.target, vals
+        if scale is not None:
+            src = src * scale.reshape(-1, *([1] * len(width)))
+        cpu_ref = torch.zeros(seg_out.shape, dtype=torch.float64).index_add_(
+            0, idx.cpu(), src.cpu())
+        seg_equal = bool(torch.equal(seg_out.cpu(), cpu_ref))
+        others = [p_ for p_ in ("tile", "block") if p_ != path
+                  and (p_ != "block" or w <= segsum.BLOCK_MAX_WIDTH)]
+        for other in others:
+            if not torch.equal(segsum.segment_sum_cuda(
+                    vals, plan, scale, path=other).cpu(), cpu_ref):
+                raise RuntimeError(f"{phase}: segment_sum's {other} "
+                                   f"path ({label}) differs from the CPU")
+        # the entries the plan sums (the CSR dedup leaves the prescribed
+        # rows and columns out), each value, index and output once
+        summed = int(plan.sorted_target.shape[0])
+        shape = (summed, w, plan.n_segments, plan.perm is not None,
+                 scale is not None)
+        seg_warm = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
+                            sync)
+        seg_ms = cold_ms(segsum.segment_sum, (vals, plan, scale), sync,
+                         segsum_bytes(*shape))
+        idx32 = idx.to(torch.int32)
+
+        def index_add(idx_, src_, shape=seg_out.shape):
+            return src_.new_zeros(shape).index_add_(0, idx_, src_)
+
+        lib_warm = graph_ms(lambda: index_add(idx32, src), sync)
+        lib_ms = cold_ms(index_add, (idx32, src), sync)
+        seg_bound, seg_bound64 = (max(
+            segsum_bytes(*shape, index_bytes=ib) / HBM_BYTES_PER_S,
+            summed * w * (1 + (scale is not None)) / PEAK_OPS["fp64"]) * 1e3
+            for ib in (4, 8))
+        say(phase, f"segment_sum, {label} ({plan.n_entries} entries x {w} "
+                   f"into {plan.n_segments}, longest {plan.max_length}): "
+                   f"{path} path; card vs index_add_ on the CPU "
+                   f"bit-identical: {seg_equal}, through the "
+                   f"{' and '.join(others)} path too; device time "
+                   f"{seg_ms:.4f} ms cold ({seg_warm:.4f} warm), index_add_ "
+                   f"(int32) on the card {lib_ms:.4f} ms cold ({lib_warm:.4f}"
+                   f" warm); bound {seg_bound:.4f} ms (bytes, int32 indices; "
+                   f"{seg_bound64:.4f} with int64) = "
+                   f"{seg_bound / seg_ms:.1%} of the cold time")
+        if not seg_equal:
+            raise RuntimeError(f"{phase}: segment_sum ({label}) differs "
+                               f"from the CPU")
+        return (float((seg_out.cpu() - cpu_ref).abs().max()),
+                (seg_warm, seg_ms), (lib_warm, lib_ms), (lib_warm, lib_ms),
+                seg_bound)
+
     # ---------------- fe-notch-small ----------------
     bundle = build_fe_problem_from_deck(notch_deck(FE_SMALL_MESH,
                                                    FE_CG_TIGHT))
@@ -2243,72 +2405,12 @@ def main() -> int:
                     int(np.prod(width, dtype=np.int64))): label
                    for label, (plan, width) in plans.items()}
     for label, (plan, width) in plans.items():
-        vals = torch.randn((plan.n_entries, *width), generator=gen,
-                           device=dev, dtype=torch.float64)
-        scale = (torch.randn(plan.n_entries, generator=gen, device=dev,
-                             dtype=torch.float64)
-                 if label == "two-level restriction" else None)
-        w = int(np.prod(width, dtype=np.int64))
-        path = segsum.segment_path(plan, w)
-        seg_out = segsum.segment_sum(vals, plan, scale)
-        if plan.target is None:      # entries outside every segment
-            idx, src = plan.sorted_target, vals[plan.perm]
-        else:
-            idx, src = plan.target, vals
-        if scale is not None:
-            src = src * scale.reshape(-1, *([1] * len(width)))
-        cpu_ref = torch.zeros(seg_out.shape, dtype=torch.float64).index_add_(
-            0, idx.cpu(), src.cpu())
-        seg_equal = bool(torch.equal(seg_out.cpu(), cpu_ref))
-        others = [p_ for p_ in ("tile", "block") if p_ != path
-                  and (p_ != "block" or w <= segsum.BLOCK_MAX_WIDTH)]
-        for other in others:
-            if not torch.equal(segsum.segment_sum_cuda(
-                    vals, plan, scale, path=other).cpu(), cpu_ref):
-                raise RuntimeError(f"determinism: segment_sum's {other} "
-                                   f"path ({label}) differs from the CPU")
-        # the entries the plan sums (the CSR dedup leaves the prescribed
-        # rows and columns out), each value, index and output once
-        summed = int(plan.sorted_target.shape[0])
-        shape = (summed, w, plan.n_segments, plan.perm is not None,
-                 scale is not None)
-        seg_warm = graph_ms(lambda: segsum.segment_sum(vals, plan, scale),
-                            sync)
-        seg_ms = cold_ms(segsum.segment_sum, (vals, plan, scale), sync,
-                         segsum_bytes(*shape))
-        idx32 = idx.to(torch.int32)
-
-        def index_add(idx_, src_, shape=seg_out.shape):
-            return src_.new_zeros(shape).index_add_(0, idx_, src_)
-
-        lib_warm = graph_ms(lambda: index_add(idx32, src), sync)
-        lib_ms = cold_ms(index_add, (idx32, src), sync)
-        seg_bound, seg_bound64 = (max(
-            segsum_bytes(*shape, index_bytes=ib) / HBM_BYTES_PER_S,
-            summed * w * (1 + (scale is not None)) / PEAK_OPS["fp64"]) * 1e3
-            for ib in (4, 8))
-        say("determinism", f"segment_sum, {label} ({plan.n_entries} entries "
-                           f"x {w} into {plan.n_segments}, longest "
-                           f"{plan.max_length}): {path} path; card vs "
-                           f"index_add_ on the CPU bit-identical: "
-                           f"{seg_equal}, through the {' and '.join(others)} "
-                           f"path too; device time {seg_ms:.4f} ms "
-                           f"cold ({seg_warm:.4f} warm), index_add_ (int32) "
-                           f"on the card {lib_ms:.4f} ms cold ({lib_warm:.4f} "
-                           f"warm); bound {seg_bound:.4f} ms (bytes, int32 "
-                           f"indices; {seg_bound64:.4f} with int64) = "
-                           f"{seg_bound / seg_ms:.1%} of the cold time")
-        if not seg_equal:
-            raise RuntimeError(f"determinism: segment_sum ({label}) differs "
-                               f"from the CPU")
+        out = check_plan("determinism", label, plan, width)
         if label in ("COO dedup", "two-level restriction"):
             # the plain version is index_add_ (on the CPU); on the card it
             # is the library call too
             results["segsum" if label == "COO dedup" else "segsum_block"] = (
-                float((seg_out.cpu() - cpu_ref).abs().max()),
-                (seg_warm, seg_ms), (lib_warm, lib_ms), (lib_warm, lib_ms),
-                seg_bound)
-        del vals, scale, seg_out, cpu_ref, src
+                out)
     # the CG's product on the step's first Newton system: csr_matvec
     # against its plain version on the CPU (csr_matvec_plain: each row in
     # ascending column order) bit for bit, and against PyTorch's CSR product
@@ -2427,6 +2529,212 @@ def main() -> int:
     del K0, unique, x, A, y, y_lib, y_plain, S, S_plain, A_card, A_cpu
     sync()
     lap("determinism")
+
+    # ---------------- fe-loads (this slice's main path) ----------------
+    def fe_loads():
+        """The notch loaded by a traction and a body force (LOADS), J2,
+        the records' solver, Newton cap 50, 4 steps, f64: at 47,628 tets
+        ||U|| per step against cmad_tpu's, the global force balance, the
+        drive twice bit for bit, j2_soa_step once per assembly, the
+        Neumann plan's segment sum; the stepped gradient at 480 tets
+        against cmad_tpu's and timed at 47,628; the manufactured-solution
+        cube with an exact traction and body force at MMS_N. Returns the
+        kernels' launches on this path (the 47,628-tet primal and
+        gradient)."""
+        from cmad_tpu_torch.fem.assembly import assemble_global_residual
+        from cmad_tpu_torch.fem.bcs import DirichletBC, NeumannBC
+        from cmad_tpu_torch.fem.dof import GlobalFieldLayout, build_dof_map
+        from cmad_tpu_torch.fem.driver import fe_quasistatic_drive_stepped
+        from cmad_tpu_torch.fem.elements import Q1_HEX
+        from cmad_tpu_torch.fem.fe_problem import build_fe_problem
+        from cmad_tpu_torch.fem.mesh import StructuredHexMesh
+        from cmad_tpu_torch.global_residuals.small_disp_equilibrium import (
+            SmallDispEquilibrium,
+        )
+        from cmad_tpu_torch.models.elastic import Elastic
+
+        phase = "fe-loads"
+        t0 = time.perf_counter()
+        lb = build_fe_problem_from_deck(loaded_deck(notch_deck(
+            FE_MESH, FE_RECORDS)))
+        fe = lb.fe_problem
+        ka = fe.kernel_arrays
+        side = ka.neumann_side_arrays
+        n_sides = sum(g["dA"].shape[0] for g in side.groups[0].values())
+        say(phase, f"{FE_MESH}: {fe.mesh.connectivity.shape[0]} tets, "
+                   f"{fe.dof_map.num_total_dofs} dofs, {n_sides} loaded "
+                   f"faces on ymax_sides; problem built in "
+                   f"{time.perf_counter() - t0:.2f} s (host)")
+        t0 = time.perf_counter()
+        state, _log, stats, counts, peak = fe_drive(phase, lb)
+        drive_s = time.perf_counter() - t0
+        norms = [float(np.linalg.norm(u)) for u in state.U_history[1:]]
+        alphas = [float(np.abs(state.xi_at(k, "block_1")[..., 6]).max())
+                  for k in range(1, len(state.U_history))]
+        worst = max(abs(a - b) / b for a, b in zip(
+            norms, FE_LOADS_REF_U_NORMS, strict=True))
+        say(phase, f"4 steps in {drive_s:.3f} s ({drive_s / 4:.3f} s per "
+                   f"step), peak memory {peak / 2**30:.3f} GiB; ||U|| per "
+                   f"step {norms}, max |alpha| {alphas}; against cmad_tpu "
+                   f"(CPU f64, direct) {list(FE_LOADS_REF_U_NORMS)}, "
+                   f"{list(FE_LOADS_REF_ALPHA_MAX)}: max rel err of ||U|| "
+                   f"{worst:.3e} (bound {FE_REF_RTOL:g})")
+        if not (worst <= FE_REF_RTOL and alphas[-1] > 0.0):
+            raise RuntimeError(f"{phase}: the drive misses cmad_tpu's "
+                               f"answer, or step 4 is not plastic")
+        # the force balance at the last step, each component
+        params = params_by_block_from_models(fe)
+        t = float(state.t_history[-1])
+        with torch.no_grad():
+            R = assemble_global_residual(
+                fe, ka, params,
+                torch.as_tensor(state.U_at(4), device=dev),
+                torch.as_tensor(state.U_at(3), device=dev), t,
+                xi_prev_by_block=pack_xi_by_block(fe, {
+                    "block_1": torch.as_tensor(state.xi_at(3, "block_1"),
+                                               device=dev)})).cpu()
+        presc = ka.prescribed_indices.cpu()
+        reaction = torch.zeros(3, dtype=torch.float64).index_add_(
+            0, presc % 3, R[presc]).numpy()
+        area = sum(float((g["dA"] * g["side_w"]).sum())
+                   for g in side.groups[0].values())
+        geom = ka.geometry_cache["block_1"]
+        volume = float((geom["per_elem"]["iso_jac_det"]
+                        * geom["shared"]["quad_w"]).sum())
+        T = area * t * np.asarray(TRACTION_PER_T)
+        B = volume * t * np.asarray(BODY_PER_T)
+        balance = reaction + T + B
+        rel = float(np.abs(balance).max() / np.linalg.norm(T))
+        say(phase, f"force balance at t = {t:g}: reactions {reaction.tolist()}"
+                   f" + integral of t dA {T.tolist()} (area {area!r}) + "
+                   f"integral of b dV {B.tolist()} (volume {volume!r}) = "
+                   f"{balance.tolist()}: max / |integral of t dA| {rel:.3e} "
+                   f"(bound {FORCE_BALANCE_RTOL:g})")
+        if not rel <= FORCE_BALANCE_RTOL:
+            raise RuntimeError(f"{phase}: the loads and reactions do not "
+                               f"balance")
+        # the drive again in this process: bit for bit
+        state2, _log2, stats2, _c2, _p2 = fe_drive(phase, lb)
+        paths = [[s_["newton_iters"] for s_ in st] for st in (stats, stats2)]
+        cgs = [[s_.get("cg_iters", []) for s_ in st]
+               for st in (stats, stats2)]
+        same_U = np.array_equal(np.stack(state.U_history),
+                                np.stack(state2.U_history))
+        say(phase, f"two drives: Newton iterations per step {paths[0]} and "
+                   f"{paths[1]}; CG iterations equal: {cgs[0] == cgs[1]}; U "
+                   f"histories bit-identical: {same_U}")
+        if not (same_U and paths[0] == paths[1] and cgs[0] == cgs[1]):
+            raise RuntimeError(f"{phase}: two drives differ")
+        del state2
+        check_plan(phase, "Neumann side scatter", side.plan, ())
+        truth = save_displacements(state, work / "u_truth_loads_47628.npy")
+        del lb, fe, ka, side, state, R
+        # the gradient at 480 tets against cmad_tpu's
+        sb = build_fe_problem_from_deck(loaded_deck(notch_deck(
+            FE_SMALL_MESH, FE_RECORDS)))
+        truth_small = save_displacements(fe_primal_drive(sb)[0],
+                                          work / "u_truth_loads_480.npy")
+        p0, s0, ts, vg = build_fe_stepped_vg(build_fe_problem_from_deck(
+            loaded_deck(grad_deck(FE_SMALL_MESH, FE_RECORDS, truth_small))))
+        J, g = vg(p0, s0, ts)
+        rel = (abs(J - FE_LOADS_GRAD_REF_J) / abs(FE_LOADS_GRAD_REF_J),
+               abs(float(g[0]) - FE_LOADS_GRAD_REF_DJ_DC)
+               / abs(FE_LOADS_GRAD_REF_DJ_DC))
+        say(phase, f"480 tets, gradient at Y {GRAD_Y} (log transform about "
+                   f"{GRAD_Y_TRUTH}): J {J!r}, dJ/dc {float(g[0])!r}; "
+                   f"cmad_tpu (CPU f64, direct) J {FE_LOADS_GRAD_REF_J!r}, "
+                   f"dJ/dc {FE_LOADS_GRAD_REF_DJ_DC!r}: rel diff J "
+                   f"{rel[0]:.3e} (bound {FE_GRAD_J_RTOL:g}), dJ/dc "
+                   f"{rel[1]:.3e} (bound {FE_GRAD_G_RTOL:g})")
+        if not (rel[0] <= FE_GRAD_J_RTOL and rel[1] <= FE_GRAD_G_RTOL):
+            raise RuntimeError(f"{phase}: the gradient misses cmad_tpu's")
+        del sb, vg
+        # the gradient at 47,628 tets, timed
+        p0, s0, ts, vg = build_fe_stepped_vg(build_fe_problem_from_deck(
+            loaded_deck(grad_deck(FE_MESH, FE_RECORDS, truth))))
+        gstats: dict = {}
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        J, g = vg(p0, s0, ts, stats=gstats)
+        sync()
+        grad_s = time.perf_counter() - t0
+        gcounts = read_counts()
+        fwd, rev = gstats["forward"], gstats["reverse"]
+        say(phase, f"47,628 tets, gradient: J {J!r}, dJ/dc {float(g[0])!r} "
+                   f"in {grad_s:.3f} s (forward "
+                   f"{sum(f['wall_s'] for f in fwd):.3f} s: Newton "
+                   f"{[f['newton_iters'] for f in fwd]}, assemblies "
+                   f"{[f['assemblies'] for f in fwd]}; reverse "
+                   f"{sum(r['wall_s'] for r in rev):.3f} s); launches "
+                   f"{gcounts}")
+        if not (np.isfinite(J) and float(g[0]) != 0.0
+                and gcounts["j2_soa_step"] > 0):
+            raise RuntimeError(f"{phase}: the gradient at 47,628 tets")
+        del vg
+        # the manufactured-solution cube
+        u_fn, t_fn, b_fn = mms_functions()
+
+        def mms_problem(n, device):
+            mesh = StructuredHexMesh((1.0, 1.0, 1.0), (n, n, n))
+            sides = [k for k in mesh.side_sets if k != "xmax_sides"]
+            dof_map = build_dof_map(
+                mesh, [GlobalFieldLayout("u", Q1_HEX)],
+                [DirichletBC(sides, "u", [0, 1, 2], u_fn)], {"u": 3})
+            model = Elastic(Parameters(
+                {"elastic": {"E": MMS_E, "nu": MMS_NU}},
+                dtype=torch.float64, device=device))
+            return build_fe_problem(
+                mesh, dof_map, SmallDispEquilibrium(ndims=3),
+                {"all": model}, forcing_fns_by_block_idx={0: b_fn},
+                neumann_bcs=[NeumannBC(["xmax_sides"], "u", t_fn)],
+                device=device)
+
+        def mms_solve(n, device, solver):
+            fe_m = mms_problem(n, device)
+            st, lg = fe_quasistatic_drive_stepped(
+                fe_m, [0.0, 1.0], {"abs tol": 1e-12, "rel tol": 1e-12},
+                solver)
+            ka_m = fe_m.kernel_arrays
+            geom_m = ka_m.geometry_cache["all"]
+            U_e = torch.as_tensor(st.U_at(1), device=device)[
+                ka_m.u_gather_eq_by_block["all"][0]]
+            u_h = torch.einsum("pa,eak->epk", geom_m["shared"]["N"][0], U_e)
+            coords = geom_m["per_elem"]["coords_ip"]
+            exact = torch.as_tensor(u_fn(coords.reshape(-1, 3).cpu()
+                                         .numpy(), 1.0),
+                                    device=device).reshape(u_h.shape)
+            dv = (geom_m["per_elem"]["iso_jac_det"]
+                  * geom_m["shared"]["quad_w"])
+            l2 = float(torch.sqrt((((u_h - exact) ** 2).sum(-1) * dv).sum()))
+            return st.U_at(1), l2, lg[0]
+
+        errs = {}
+        for n in MMS_N:
+            t0 = time.perf_counter()
+            U_n, errs[n], lg = mms_solve(n, dev, FE_CG_TIGHT)
+            say(phase, f"manufactured cube n = {n} ({n ** 3} hexes): L2 error "
+                       f"{errs[n]!r}, ||R|| {lg['initial_residual']:.3e} -> "
+                       f"{lg['final_residual']:.3e}, "
+                       f"{time.perf_counter() - t0:.2f} s")
+            if n == MMS_N[0]:
+                U_cpu = mms_solve(n, "cpu", FE_DIRECT)[0]
+                cpu_rel = float(np.abs(U_n - U_cpu).max()
+                                / np.abs(U_cpu).max())
+        rates = [float(np.log2(errs[a] / errs[b]))
+                 for a, b in zip(MMS_N, MMS_N[1:])]
+        say(phase, f"manufactured cube: L2 rates {rates} (bound > "
+                   f"{MMS_RATE}); the card's U at n = {MMS_N[0]} vs the "
+                   f"port on the CPU (direct): max rel diff {cpu_rel:.3e} "
+                   f"(bound {MMS_CPU_BOUND:g})")
+        if not (min(rates) > MMS_RATE and cpu_rel <= MMS_CPU_BOUND):
+            raise RuntimeError(f"{phase}: the manufactured cube")
+        sync()
+        torch.cuda.empty_cache()
+        return {k: counts[k] + gcounts[k] for k in counts}
+
+    loads_counts = fe_loads()
+    lap("fe-loads")
 
     # ---------------- fe-grad-small ----------------
 
@@ -3831,8 +4139,11 @@ def main() -> int:
     # gradient at 47,628 tets) likewise
     elastic_path = {k: sum(c.get(k, 0) for c in el_counts.values())
                     + egrad_counts.get(k, 0) for k in main_path}
+    # the loaded path (fe-loads' primal and gradient at 47,628 tets)
+    loads_path = {k: loads_counts.get(k, 0) for k in main_path}
     say("launches", f"main paths (fe-grad + fe-hessian; history-drive; "
-                    f"mp-batched; roofline): {main_path}; fe-grad "
+                    f"mp-batched; roofline): {main_path}; the loaded path "
+                    f"(fe-loads' primal + gradient) {loads_path}; fe-grad "
                     f"{grad_counts}; fe-hessian {hess_counts}; fe-notch's "
                     f"primal launched "
                     f"{fe_counts}; fe-dispatch launched j2_soa_step "
@@ -3916,6 +4227,7 @@ def main() -> int:
          "launches": main_path[kname],
          "hosford_launches": hosford_path[kname],
          "elastic_launches": elastic_path[kname],
+         "loads_launches": loads_path[kname],
          "mp_launches": mp_counts.get(kname, 0), "max_abs_err": err,
          "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],

@@ -2,8 +2,9 @@
 
 Port of ``cmad_tpu/cli/fe_common.py`` (parity: reference
 ``cmad/cli/common.py:149-785``, FE half): deck -> mesh -> GR -> per-block
-models -> Dirichlet BCs -> GlobalDofMap -> FEProblem + time schedule +
-QoI, on the card unless the caller asks for the CPU; the load cases
+models -> Dirichlet BCs -> GlobalDofMap -> surface fluxes and body forces
+-> FEProblem + time schedule + QoI, on the card unless the caller asks
+for the CPU; the load cases
 (:func:`build_fe_cases`); the parameter overlay
 (:func:`fe_params_overlay`); the scan driver's ``J(params_flat)``
 (:func:`build_fe_J_of_params_flat`, whose gradient and Hessian are
@@ -20,6 +21,7 @@ validated against the schema of its subcommand).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 from pathlib import Path
 from typing import Any
 
@@ -28,7 +30,7 @@ import torch
 
 from cmad_tpu_torch import config
 from cmad_tpu_torch.cli.common import with_material_defaults
-from cmad_tpu_torch.fem.bcs import DirichletBC
+from cmad_tpu_torch.fem.bcs import DirichletBC, NeumannBC
 from cmad_tpu_torch.fem.dof import GlobalFieldLayout, build_dof_map
 from cmad_tpu_torch.fem.elements import P1_TET, Q1_HEX, FiniteElement
 from cmad_tpu_torch.fem.fe_problem import (
@@ -37,7 +39,12 @@ from cmad_tpu_torch.fem.fe_problem import (
     build_fe_problem,
 )
 from cmad_tpu_torch.fem.mesh import coordinate_side_sets
-from cmad_tpu_torch.fem.quadrature import hex_quadrature, tet_quadrature
+from cmad_tpu_torch.fem.quadrature import (
+    hex_quadrature,
+    quad_quadrature,
+    tet_quadrature,
+    tri_quadrature,
+)
 from cmad_tpu_torch.fem.topology import ElementFamily
 from cmad_tpu_torch.global_residuals.global_residual import GlobalResidual
 from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
@@ -58,8 +65,10 @@ _DEFAULT_FE = {ElementFamily.HEX_LINEAR: Q1_HEX,
 _FE_BY_NAME = {"Q1": Q1_HEX, "Q1_HEX": Q1_HEX,
                "P1": P1_TET, "P1_TET": P1_TET}
 _COORD_NAMES = ("x", "y", "z", "t")
-_VOLUME_RULES = {ElementFamily.HEX_LINEAR: hex_quadrature,
-                 ElementFamily.TET_LINEAR: tet_quadrature}
+_RULES = {("volume", ElementFamily.HEX_LINEAR): hex_quadrature,
+          ("volume", ElementFamily.TET_LINEAR): tet_quadrature,
+          ("surface", ElementFamily.HEX_LINEAR): quad_quadrature,
+          ("surface", ElementFamily.TET_LINEAR): tri_quadrature}
 
 
 @dataclass(frozen=True)
@@ -89,12 +98,6 @@ def build_fe_problem_from_deck(
 
         resolved = apply_deck_defaults(load_deck(Path(deck)))
         validate_deck(resolved, subcommand or _default_subcommand(resolved))
-    for section, item in (("surface flux bcs", "8"),
-                          ("body forces", "8")):
-        if resolved.get(section):
-            raise NotImplementedError(
-                f"deck section {section!r} is not ported yet: ROADMAP "
-                f"queue 1, item {item}")
     disc = resolved["discretization"]
 
     mesh = read_mesh_file(Path(disc["mesh file"]))
@@ -127,17 +130,18 @@ def build_fe_problem_from_deck(
                   for r in range(gr.num_residuals)}
     dirichlet = _build_dirichlet_bcs(resolved.get("dirichlet bcs"), gr)
     dof_map = build_dof_map(mesh, layouts, dirichlet, components)
-
-    quad = (disc.get("quadrature") or {}).get("volume degree")
-    assembly_quad = (None if quad is None else
-                     {mesh.element_family:
-                      _VOLUME_RULES[mesh.element_family](int(quad))})
+    neumann = _build_neumann_bcs(resolved.get("surface flux bcs"), gr)
+    forcing = _build_forcing_fns(resolved.get("body forces"), gr)
+    assembly_quad, side_quad = _quadrature_overrides(disc,
+                                                     mesh.element_family)
 
     abs_tol, rel_tol = _deck_tols(local_section, "fe_local", dtype)
     fe_problem = build_fe_problem(
         mesh=mesh, dof_map=dof_map, gr=gr,
         models_by_block=models_by_block, modes_by_block=modes_by_block,
-        assembly_quadrature=assembly_quad,
+        forcing_fns_by_block_idx=forcing or None,
+        assembly_quadrature=assembly_quad, neumann_bcs=neumann,
+        side_quadrature=side_quad,
         print_local_convergence=bool(
             local_section.get("print convergence", False)),
         local_newton_settings={
@@ -484,6 +488,17 @@ def _resolve_fe(name: str, family: ElementFamily,
     return fe
 
 
+def _quadrature_overrides(disc, family):
+    """The deck's ``quadrature`` degrees as (volume rules, side rules),
+    each None where the deck sets none."""
+    quad = disc.get("quadrature") or {}
+    vol, surf = quad.get("volume degree"), quad.get("surface degree")
+    return ({family: _RULES[("volume", family)](int(vol))}
+            if vol is not None else None,
+            {family: _RULES[("surface", family)](int(surf))}
+            if surf is not None else None)
+
+
 def _resid_idx(resid_name: str, gr: GlobalResidual, where: str) -> int:
     try:
         return gr.resid_names.index(resid_name)
@@ -515,6 +530,55 @@ def _build_dirichlet_bcs(section, gr: GlobalResidual):
         bcs.append(DirichletBC([str(sideset)], str(gr.var_names[r]),
                                [int(eq)], dbc_values))
     return bcs
+
+
+def _component_fns(entry, gr: GlobalResidual, where: str):
+    """(residual index, one parsed expression per component) of a ``surface
+    flux bcs`` or ``body forces`` entry's residual and expressions."""
+    resid_name, *exprs = entry
+    r = _resid_idx(resid_name, gr, where)
+    ncomp = int(gr._num_eqs[r])
+    if len(exprs) != ncomp:
+        raise ValueError(
+            f"{where}: {resid_name!r} takes {ncomp} components; got "
+            f"{len(exprs)}")
+    return r, [parse_scalar_expression(e, _COORD_NAMES) for e in exprs]
+
+
+def _at_points(fns, coords, t) -> np.ndarray:
+    """``(n, ncomp)``: the component expressions at ``coords (n, 3)``."""
+    n = coords.shape[0]
+    return np.stack([np.broadcast_to(np.asarray(f(
+        x=coords[:, 0], y=coords[:, 1], z=coords[:, 2], t=t),
+        dtype=np.float64), (n,)) for f in fns], axis=-1)
+
+
+def _build_neumann_bcs(section, gr: GlobalResidual):
+    if not section:
+        return []
+    bcs = []
+    for entry_name, entry in section.get("expression", {}).items():
+        where = f"surface flux bcs.expression.{entry_name}"
+        resid_name, sideset, *exprs = entry
+        r, fns = _component_fns([resid_name, *exprs], gr, where)
+        bcs.append(NeumannBC([str(sideset)], str(gr.var_names[r]),
+                             partial(_at_points, fns)))
+    return bcs
+
+
+def _build_forcing_fns(section, gr: GlobalResidual):
+    if not section:
+        return {}
+    out = {}
+    for entry_name, entry in section.get("expression", {}).items():
+        where = f"body forces.expression.{entry_name}"
+        r, fns = _component_fns(entry, gr, where)
+        if r in out:
+            raise ValueError(
+                f"{where}: residual {entry[0]!r} already has a "
+                f"body-force entry")
+        out[r] = partial(_at_points, fns)
+    return out
 
 
 def _load_t_schedule(disc) -> np.ndarray:

@@ -22,7 +22,14 @@ entries in ascending entry order, on the card (the ``segment_sum``
 kernel) as on the CPU (``index_add_``), so R and K are the same bits from
 run to run, and the reverse sweep's transposes are too.
 
-Neumann loads are not ported yet (ROADMAP queue 1, item 8).
+External loads enter R as ``R = R_int - F_ext``: each block subtracts
+its body force ``N (x) f(x_ip, t) w dv`` from its element residuals, and
+the surface fluxes (``fem/neumann.py``) are added after the volume walk,
+as the JAX package adds them. A load depends on (x, t) only, so
+:func:`external_loads` evaluates them once per time, on the host over
+all of their points, and every assembly at that time (a step's Newton
+iterations, line-search probes and residual pair, and the sensitivity
+sweeps' re-assemblies) reads the same tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 
 from cmad_tpu_torch.fem.dof import GlobalDofMap, GlobalFieldLayout
 from cmad_tpu_torch.fem.elements import EntityType
+from cmad_tpu_torch.fem.neumann import assemble_side_neumann
 from cmad_tpu_torch.fem.sparse_solve import CooMatrix
 from cmad_tpu_torch.global_residuals.modes import GlobalResidualMode
 from cmad_tpu_torch.ops.segment_sum import segment_gather, segment_sum
@@ -89,6 +97,40 @@ def gather_element_U(U_global: Tensor, fe_arrays: "FEKernelArrays",
                                 strict=True)]
 
 
+def external_loads(fe_problem: "FEProblem", fe_arrays: "FEKernelArrays",
+                   t: float):
+    """``(R_neumann | None, {block: f_ip (E, Q, ncomp)})``: the surface-flux
+    vector and each block's body force at its IPs, at time ``t``. Each is
+    evaluated once for a time, its host values copied to the device once,
+    and kept until an assembly asks for another time."""
+    t = float(t)
+    cache = fe_problem.load_cache
+    if cache.get("t") != t:
+        cache.clear()
+        side = fe_arrays.neumann_side_arrays
+        neumann = None if side is None else assemble_side_neumann(
+            side, fe_problem.resolved_neumann_bcs, t)
+        fn = (fe_problem.forcing_fns_by_block_idx or {}).get(0)
+        body = {} if fn is None else {
+            block: _body_force_at_ips(fe_problem, fe_arrays, fn, block,
+                                      coords, t)
+            for block, coords in fe_arrays.body_force_coords_by_block.items()}
+        cache.update(t=t, neumann=neumann, body=body)
+    return cache["neumann"], cache["body"]
+
+
+def _body_force_at_ips(fe_problem, fe_arrays, fn, block, coords, t):
+    """The body force ``fn(coords, t)`` at the block's IPs, (E, Q,
+    ncomp) on the problem's device."""
+    E, Q = fe_arrays.geometry_cache[block]["per_elem"]["iso_jac_det"].shape
+    vals = np.asarray(fn(coords, t), dtype=np.float64)
+    if vals.shape != (E * Q, int(fe_problem.gr._num_eqs[0])):
+        raise ValueError(f"forcing fn returned {vals.shape} at {E * Q} "
+                         f"points of block {block!r}")
+    return torch.as_tensor(vals.reshape(E, Q, -1), dtype=fe_problem.dtype,
+                           device=fe_problem.device)
+
+
 def _block_evaluators(fe_problem, block_name, xi_prev_per_block):
     """The block's evaluators and the state they take: ``xi_prev`` for a
     COUPLED block (required), None for a CLOSED_FORM one."""
@@ -123,9 +165,10 @@ def assemble_element_block(fe_problem: "FEProblem",
                                             xi_prev_per_block)
     U_elem = gather_element_U(U_global, fe_arrays, block_name)
     U_prev_elem = gather_element_U(U_prev_global, fe_arrays, block_name)
+    f_ip = external_loads(fe_problem, fe_arrays, t)[1].get(block_name)
     R_e, K_e, xi_solved = evaluators["block_R_and_K_and_xi"](
         params_by_block[block_name], U_elem[0], U_prev_elem[0],
-        fe_arrays.geometry_cache[block_name], None, t, xi_prev)
+        fe_arrays.geometry_cache[block_name], f_ip, t, xi_prev)
     R = _scatter_residual(fe_problem, fe_arrays, block_name, R_e)
     n_elems = R_e.shape[0]
     return R, K_e.reshape(n_elems, -1).reshape(-1), xi_solved
@@ -139,9 +182,10 @@ def assemble_element_block_residual(fe_problem, fe_arrays, params_by_block,
                                             xi_prev_per_block)
     U_elem = gather_element_U(U_global, fe_arrays, block_name)
     U_prev_elem = gather_element_U(U_prev_global, fe_arrays, block_name)
+    f_ip = external_loads(fe_problem, fe_arrays, t)[1].get(block_name)
     R_e = evaluators["block_R"](
         params_by_block[block_name], U_elem[0], U_prev_elem[0],
-        fe_arrays.geometry_cache[block_name], None, t, xi_prev)
+        fe_arrays.geometry_cache[block_name], f_ip, t, xi_prev)
     return _scatter_residual(fe_problem, fe_arrays, block_name, R_e)
 
 
@@ -150,8 +194,9 @@ def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
     """(K deduped, R, xi_solved_by_block) over all element blocks;
     ``xi_solved_by_block`` holds the COUPLED blocks only.
 
-    Convention: ``R(U) = R_int(U) - F_ext``; the Newton driver solves
-    ``K dU = -R``.
+    Convention: ``R(U) = R_int(U) - F_ext`` with body forces folded per
+    element and surface fluxes added after the volume walk; the Newton
+    driver solves ``K dU = -R``.
     """
     xi_prev = xi_prev_by_block or {}
     R = None
@@ -167,6 +212,7 @@ def assemble_global(fe_problem, fe_arrays, params_by_block, U_global,
         vals_all.append(vals)
         if xi_solved is not None:
             xi_solved_by_block[block_name] = xi_solved
+    R = _with_neumann(fe_problem, fe_arrays, R, t)
 
     vals = torch.cat(vals_all)
     unique = segment_sum(vals, fe_arrays.coo_dedup_plan)
@@ -188,7 +234,12 @@ def assemble_global_residual(fe_problem, fe_arrays, params_by_block,
             U_global, U_prev_global, t,
             xi_prev_per_block=xi_prev.get(block_name))
         R = R_b if R is None else R + R_b
-    return R
+    return _with_neumann(fe_problem, fe_arrays, R, t)
+
+
+def _with_neumann(fe_problem, fe_arrays, R: Tensor, t) -> Tensor:
+    neumann = external_loads(fe_problem, fe_arrays, t)[0]
+    return R if neumann is None else R + neumann.to(R.dtype)
 
 
 def assembled_coo_pattern(fe_problem):

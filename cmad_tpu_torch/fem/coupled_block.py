@@ -22,7 +22,8 @@ operator, ``D66 = d sigma6 / d eps6`` the 6x6 algorithmic tangent and
    right-hand sides gives ``dx/dg6``, then
    ``D66 = ds/dg6 + ds/dx dx/dg6`` through the state's reconstruction
    and ``cauchy_fun``;
-4. ``R`` and ``K = B^T (c D66 w dv) B`` as batched einsums.
+4. ``R`` (less the body force ``N f w dv`` when there is one) and
+   ``K = B^T (c D66 w dv) B`` as batched einsums.
 
 The JAX package took ``D66`` from a six-wide ``jacfwd`` over the point
 function, local solve included. The port's implicit solve
@@ -101,8 +102,9 @@ def make_pointbatch_block_kernels(
     """The ``{"block_R_and_K_and_xi", "block_R"}`` evaluators consumed by
     ``fem/assembly.py`` for blocks passing :func:`pointbatch_applicable`,
     with the contract of ``fem/j2_block.py``: both take ``(params, U_elem,
-    U_prev_elem, geom, forcing_fn, t, xi_prev)`` with ``U_elem`` (E, nd, 3)
-    and ``xi_prev`` the AoS state (E, Q, 7). ``"local_solve"`` is the
+    U_prev_elem, geom, f_ip, t, xi_prev)`` with ``U_elem`` (E, nd, 3),
+    ``f_ip`` the body force at the IPs (E, Q, 3) or None, and ``xi_prev``
+    the AoS state (E, Q, 7). ``"local_solve"`` is the
     :class:`~cmad_tpu_torch.models.nonlinear_solver.LocalSolve`
     they run (its ``newton.log`` records iterations when set to a
     list)."""
@@ -136,24 +138,23 @@ def make_pointbatch_block_kernels(
         g6 = vector_from_sym_tensor(0.5 * (G + G.transpose(-1, -2)))
         return gradN, wdv, g6.reshape(E * Q, 6), xi_prev.reshape(E * Q, 7)
 
-    def _residual(s6, gradN, wdv, forcing_fn):
-        if forcing_fn is not None:
-            raise NotImplementedError(
-                "body forces on the point-batch block are not ported yet: "
-                "ROADMAP queue 1, item 8")
+    def _residual(s6, gradN, wdv, f_ip, geom):
         E, Q = wdv.shape
         sigma = sym_tensor_from_vector(s6.reshape(E, Q, 6))
-        return torch.einsum("eqaj,eqji,eq->eai", gradN, sigma, wdv)
+        R = torch.einsum("eqaj,eqji,eq->eai", gradN, sigma, wdv)
+        if f_ip is not None:
+            N0 = geom["shared"]["N"][0]                 # (Q, nd)
+            R = R - torch.einsum("qa,eqi,eq->eai", N0, f_ip, wdv)
+        return R
 
-    def block_r_and_k_and_xi(params, U_e, Up_e, geom, forcing_fn, t,
-                             xi_prev):
+    def block_r_and_k_and_xi(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         gradN, wdv, g6, xi_p = _common(U_e, Up_e, geom, xi_prev)
         E, Q = wdv.shape
         x, x_prev = solve.unknowns(xi_p, params, g6)
         ds_dx, ds_dg = stress_jac_b(x, xi_p, params, g6)
         D66 = ds_dg + ds_dx @ solve.tangent(x, x_prev, params, g6)
         s6 = stress_b(x, xi_p, params, g6)
-        R = _residual(s6, gradN, wdv, forcing_fn)
+        R = _residual(s6, gradN, wdv, f_ip, geom)
 
         T = torch.as_tensor(_strain_dof_tensor(), dtype=wdv.dtype,
                             device=wdv.device)
@@ -165,11 +166,11 @@ def make_pointbatch_block_kernels(
         xi = solve.state(x, xi_p, params, g6)
         return R, K, xi.reshape(E, Q, 7)
 
-    def block_r(params, U_e, Up_e, geom, forcing_fn, t, xi_prev):
+    def block_r(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         gradN, wdv, g6, xi_p = _common(U_e, Up_e, geom, xi_prev)
         x, _x_prev = solve.unknowns(xi_p, params, g6)
-        return _residual(stress_b(x, xi_p, params, g6), gradN, wdv,
-                         forcing_fn)
+        return _residual(stress_b(x, xi_p, params, g6), gradN, wdv, f_ip,
+                         geom)
 
     return {"block_R_and_K_and_xi": block_r_and_k_and_xi,
             "block_R": block_r, "local_solve": solve}

@@ -3,13 +3,17 @@
 Port of ``cmad_tpu/fem/fe_problem.py`` (parity: reference
 ``cmad/fem/fe_problem.py``). Everything is resolved once at
 construction: per-block evaluator dicts from ``gr.for_model``, the
-geometry cache, the embedded-BC sparsity, the near-null space and the
-kernel arrays, as tensors on the problem's ``device``. The FE entry
-points run on ``config.DEFAULT_DEVICE`` (the card) unless the caller
-passes ``device="cpu"``; without a card the default raises.
+resolved Neumann BCs, the geometry cache, the embedded-BC sparsity, the
+near-null space and the kernel arrays, as tensors on the problem's
+``device``. The FE entry points run on ``config.DEFAULT_DEVICE`` (the
+card) unless the caller passes ``device="cpu"``; without a card the
+default raises.
 
-Neumann BCs and body forces are not on the ported path yet: the builder
-accepts none and raises otherwise (ROADMAP queue 1, item 8).
+External loads (``R = R_int - F_ext``) depend on (x, t) only: a Neumann
+BC's values and a body force are host callables ``(coords (n, 3), t) ->
+(n, ncomp)`` on numpy arrays (or constants, for a Neumann BC), which
+``fem/assembly.py`` evaluates once per time over all of their points
+(``load_cache``).
 """
 from __future__ import annotations
 
@@ -28,10 +32,12 @@ from cmad_tpu_torch.config import (
 from cmad_tpu_torch.fem.bcs import NeumannBC
 from cmad_tpu_torch.fem.dof import GlobalDofMap, GlobalFieldLayout
 from cmad_tpu_torch.fem.mesh import Mesh
+from cmad_tpu_torch.fem.neumann import ResolvedNeumannBC, resolve_neumann_bcs
 from cmad_tpu_torch.fem.precompute import precompute_block_geometry
 from cmad_tpu_torch.fem.quadrature import (
     QuadratureRule,
     default_assembly_quadrature,
+    default_side_quadrature,
 )
 from cmad_tpu_torch.fem.topology import ElementFamily
 from cmad_tpu_torch.global_residuals.global_residual import GlobalResidual
@@ -42,9 +48,6 @@ if TYPE_CHECKING:
     from cmad_tpu_torch.fem.kernel_arrays import FEKernelArrays
     from cmad_tpu_torch.fem.sparse_solve import EmbeddedSparsity
 
-_NOT_PORTED_LOADS = ("Neumann BCs and body forces are not ported yet: "
-                     "ROADMAP queue 1, item 8")
-
 
 @dataclass(frozen=True)
 class FEProblem:
@@ -54,13 +57,18 @@ class FEProblem:
     models_by_block: dict[str, Model]
     modes_by_block: dict[str, GlobalResidualMode]
     evaluators_by_block: dict[str, dict]
+    forcing_fns_by_block_idx: dict[int, Callable] | None
     assembly_quadrature: dict[ElementFamily, QuadratureRule]
+    neumann_bcs: Sequence[NeumannBC]
+    side_quadrature: dict[ElementFamily, QuadratureRule]
     device: torch.device
     dtype: torch.dtype
 
     field_layouts_per_block: list[GlobalFieldLayout] = field(
         init=False, default_factory=list)
     field_idx_per_block: list[int] = field(init=False, default_factory=list)
+    resolved_neumann_bcs: list[ResolvedNeumannBC] = field(
+        init=False, default_factory=list)
     geometry_cache: dict[str, dict] = field(init=False,
                                             default_factory=dict)
     kernel_arrays: "FEKernelArrays" = field(init=False, default=None)
@@ -68,6 +76,9 @@ class FEProblem:
     # the two-level prolongator, built on first use
     # (nonlinear_solver.get_two_level_pattern)
     two_level_patterns: dict = field(init=False, default_factory=dict)
+    # the external loads at one time t, evaluated on its first assembly
+    # (fem/assembly.external_loads)
+    load_cache: dict = field(init=False, default_factory=dict)
 
     def __post_init__(self):
         name_to_idx = {fl.name: i
@@ -89,6 +100,9 @@ class FEProblem:
             layouts.append(self.dof_map.field_layouts[idx])
         object.__setattr__(self, "field_layouts_per_block", layouts)
         object.__setattr__(self, "field_idx_per_block", idxs)
+        object.__setattr__(self, "resolved_neumann_bcs",
+                           resolve_neumann_bcs(self.mesh, self.dof_map,
+                                               self.neumann_bcs))
         object.__setattr__(self, "geometry_cache", precompute_block_geometry(
             self.mesh, self.assembly_quadrature, layouts, self.dtype,
             self.device))
@@ -170,21 +184,23 @@ def build_fe_problem(
         modes_by_block: dict[str, GlobalResidualMode] | None = None,
         forcing_fns_by_block_idx: dict[int, Callable] | None = None,
         assembly_quadrature=None, neumann_bcs: Sequence[NeumannBC] = (),
-        print_local_convergence: bool = False,
+        side_quadrature=None, print_local_convergence: bool = False,
         local_newton_settings: dict[str, Any] | None = None, *,
         dtype: torch.dtype = DEFAULT_DTYPE,
         device: torch.device | str = DEFAULT_DEVICE) -> FEProblem:
     """Validate + build on ``device`` in ``dtype``. Blocks must match the
     mesh partition; each (block, model, mode) binds once via
-    ``gr.for_model``. Each model's parameters must live on ``device``."""
+    ``gr.for_model``. Each model's parameters must live on ``device``.
+    A forcing callable ``(coords (n, 3), t) -> (n, ncomp)`` (numpy) is
+    shape-probed at one point at t = 0."""
     device = checked_device(device)
-    if forcing_fns_by_block_idx or neumann_bcs:
-        raise NotImplementedError(_NOT_PORTED_LOADS)
     if modes_by_block is None:
         modes_by_block = {b: GlobalResidualMode.CLOSED_FORM
                           for b in models_by_block}
     if assembly_quadrature is None:
         assembly_quadrature = default_assembly_quadrature()
+    if side_quadrature is None:
+        side_quadrature = default_side_quadrature()
 
     if set(mesh.element_blocks) != set(models_by_block):
         raise ValueError(
@@ -198,6 +214,21 @@ def build_fe_problem(
             raise ValueError(
                 f"block {b!r}: the model's parameters are on {pdev}, the "
                 f"problem on {device}")
+
+    for idx, fn in (forcing_fns_by_block_idx or {}).items():
+        if not 0 <= idx < gr.num_residuals:
+            raise ValueError(
+                f"forcing block_idx {idx} out of range "
+                f"[0, {gr.num_residuals})")
+        try:
+            probe = np.asarray(fn(np.zeros((1, 3)), 0.0))
+        except Exception:
+            continue
+        expected = (1, int(gr._num_eqs[idx]))
+        if probe.shape != expected:
+            raise ValueError(
+                f"forcing fn for block {idx} returned {probe.shape}; "
+                f"expected {expected}")
 
     evaluators = {}
     for b, model in models_by_block.items():
@@ -213,5 +244,6 @@ def build_fe_problem(
         mesh=mesh, dof_map=dof_map, gr=gr,
         models_by_block=models_by_block, modes_by_block=modes_by_block,
         evaluators_by_block=evaluators,
-        assembly_quadrature=assembly_quadrature, device=device,
-        dtype=dtype)
+        forcing_fns_by_block_idx=forcing_fns_by_block_idx,
+        assembly_quadrature=assembly_quadrature, neumann_bcs=neumann_bcs,
+        side_quadrature=side_quadrature, device=device, dtype=dtype)

@@ -8,14 +8,15 @@ Port of the generic per-integration-point assembly of
 (``_bind_closed_form``, ``_bind_coupled``). It serves the blocks the J2
 block (``fem/j2_block.py``) and the point-batch block
 (``fem/coupled_block.py``) decline, with their evaluator signature
-``(params, U_e, Up_e, geom, forcing_fn, t, xi_prev) -> (R_e, K_e, xi |
+``(params, U_e, Up_e, geom, f_ip, t, xi_prev) -> (R_e, K_e, xi |
 None)``, so ``fem/assembly.py`` has one dispatch and one scatter.
 
 The GR's per-point residual ``residual_fn`` (one point, functional) runs
 over the block's flat ``E*Q`` point batch under ``torch.func.vmap``,
-each point with its element's coefficients; each element's residual and
-matrix are the sum of its points' in ascending point order, a fixed
-order on the card as on the CPU:
+each point with its element's coefficients, less the point's body force
+``N (x) f w dv`` when there is one (``_apply_body_force`` in the JAX
+package); each element's residual and matrix are the sum of its points'
+in ascending point order, a fixed order on the card as on the CPU:
 
 - CLOSED_FORM: the stress from ``model.cauchy_closed_form_fun``; the
   tangent is ``vmap(jacfwd(...))`` of the point's residual in the
@@ -37,7 +38,7 @@ the implicit solve, so ``K``'s dependence on them reaches the
 second-derivative sweeps. The GR's residual keeps the JAX package's
 per-residual-block lists and (r, s) tangent blocks; the block emits the
 single displacement field's (the mixed u-p form raises, ROADMAP queue 1,
-item 22). Body forces raise (item 8).
+item 22).
 """
 from __future__ import annotations
 
@@ -83,9 +84,10 @@ def _points(U_e, Up_e, geom):
 def make_generic_block_kernels(gr, model, mode, local_solve=None) -> dict:
     """The ``{"block_R_and_K_and_xi", "block_R"}`` evaluators of ``model``
     in ``mode`` through ``gr``'s weak form, with the contract of
-    ``fem/j2_block.py``: ``U_elem`` (E, nd, 3), ``xi_prev`` the AoS state
-    (E, Q, nxi) in COUPLED mode (ignored in CLOSED_FORM, whose ``xi`` is
-    None). COUPLED takes ``local_solve``, the
+    ``fem/j2_block.py``: ``U_elem`` (E, nd, 3), ``f_ip`` the body force
+    at the IPs (E, Q, 3) or None, ``xi_prev`` the AoS state (E, Q, nxi)
+    in COUPLED mode (ignored in CLOSED_FORM, whose ``xi`` is None).
+    COUPLED takes ``local_solve``, the
     :class:`~cmad_tpu_torch.models.nonlinear_solver.LocalSolve` of the
     model's residual in the element's coefficients, with ``aux = (U_prev,
     N, grad_N)`` (``GlobalResidual.point_fields``); it is returned as
@@ -127,11 +129,14 @@ def make_generic_block_kernels(gr, model, mode, local_solve=None) -> dict:
     coupled_k_b = vmap(jacfwd(with_value(point_r), argnums=(0, 3),
                               has_aux=True), in_dims=cp_dims)
 
-    def _forcing(forcing_fn):
-        if forcing_fn is not None:
-            raise NotImplementedError(
-                "body forces on the generic block are not ported yet: "
-                "ROADMAP queue 1, item 8")
+    def _residual(R, pts, f_ip, E, Q):
+        """The element residuals: each point's residual less its body
+        force, summed over the element's points."""
+        if f_ip is not None:
+            N, w, dv = pts[2], pts[4], pts[5]
+            R = R - (N[:, :, None] * f_ip.reshape(E * Q, 1, -1)
+                     * w[:, None, None] * dv[:, None, None])
+        return _sum_points(R, E, Q)
 
     def _state(params, pts, xi_prev):
         """The converged states (E*Q, nxi), their previous values, and
@@ -141,28 +146,26 @@ def make_generic_block_kernels(gr, model, mode, local_solve=None) -> dict:
         x, x_prev = local_solve.unknowns(xi_p, params, U, aux)
         return x, x_prev, xi_p, (U, aux)
 
-    def block_r_and_k_and_xi(params, U_e, Up_e, geom, forcing_fn, t,
-                             xi_prev):
-        _forcing(forcing_fn)
+    def block_r_and_k_and_xi(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         (E, Q), pts = _points(U_e, Up_e, geom)
         if not coupled:
             K, R = closed_k_b(params, *pts)
-            return _sum_points(R, E, Q), _sum_points(K, E, Q), None
+            return _residual(R, pts, f_ip, E, Q), _sum_points(K, E, Q), None
         x, x_prev, xi_p, inputs = _state(params, pts, xi_prev)
         (dR_dxi, dR_dU), R = coupled_k_b(x, xi_p, params, *pts)
         dxi_dU = local_solve.tangent(x, x_prev, params, *inputs)
         K = dR_dU + torch.einsum("paix,pxbk->paibk", dR_dxi, dxi_dU)
         xi = local_solve.state(x, xi_p, params, *inputs)
-        return (_sum_points(R, E, Q), _sum_points(K, E, Q),
+        return (_residual(R, pts, f_ip, E, Q), _sum_points(K, E, Q),
                 xi.reshape(E, Q, -1))
 
-    def block_r(params, U_e, Up_e, geom, forcing_fn, t, xi_prev):
-        _forcing(forcing_fn)
+    def block_r(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         (E, Q), pts = _points(U_e, Up_e, geom)
         if not coupled:
-            return _sum_points(closed_r_b(params, *pts), E, Q)
+            return _residual(closed_r_b(params, *pts), pts, f_ip, E, Q)
         x, _x_prev, xi_p, _inputs = _state(params, pts, xi_prev)
-        return _sum_points(coupled_r_b(x, xi_p, params, *pts), E, Q)
+        return _residual(coupled_r_b(x, xi_p, params, *pts), pts, f_ip,
+                         E, Q)
 
     evaluators = {"block_R_and_K_and_xi": block_r_and_k_and_xi,
                   "block_R": block_r}

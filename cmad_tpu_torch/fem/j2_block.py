@@ -11,7 +11,8 @@ batched stages:
    ``j2_soa_step`` on CUDA tensors (the TPU's ``_kernel_soa``, K1), its
    plain version on CPU tensors; no other path;
 3. the residual ``R[e,a,i] = grad_N[e,q,a,j] sigma[j,i] w dv`` from the
-   component-major stress rows;
+   component-major stress rows, less the body force
+   ``N[q,a] f[e,q,i] w dv`` when there is one;
 4. the element stiffness from the consistent tangent
    ``D_alg = kappa I(x)I + A (I_sym - I(x)I/3) - c d(x)d`` contracted
    against the shape gradients (``consistent_tangent_rows``).
@@ -110,10 +111,11 @@ def make_j2_block_kernels(model) -> dict:
     """The ``{"block_R_and_K_and_xi", "block_R"}`` evaluators consumed by
     ``fem/assembly.py`` for blocks passing :func:`j2_block_applicable`.
 
-    Both take ``(params, U_elem, U_prev_elem, geom, forcing_fn, t,
-    xi_prev)`` with ``U_elem`` (E, nd, 3) displacement coefficients,
-    ``geom`` the block's geometry-cache entry, ``forcing_fn`` None (body
-    forces are not ported yet), and ``xi_prev`` the state, either AoS
+    Both take ``(params, U_elem, U_prev_elem, geom, f_ip, t, xi_prev)``
+    with ``U_elem`` (E, nd, 3) displacement coefficients, ``geom`` the
+    block's geometry-cache entry, ``f_ip`` the body force at the block's
+    IPs (E, Q, 3) or None (``fem/assembly.external_loads``, evaluated
+    once per time), and ``xi_prev`` the state, either AoS
     (E, Q, 7) or the component-major carrier (8, E*Q)
     (``fem/xi_carrier.py``); each returns the state in the layout it was
     given.
@@ -143,13 +145,13 @@ def make_j2_block_kernels(model) -> dict:
         out = step(xi_soa, de_soa, scalars).reshape(8, E, Q)
         return out, scalars, gradN, wdv, de_soa.reshape(8, E, Q), carrier
 
-    def _residual(out, gradN, wdv, forcing_fn):
-        if forcing_fn is not None:
-            raise NotImplementedError(
-                "body forces on the J2 block are not ported yet: ROADMAP "
-                "queue 1, item 8")
+    def _residual(out, gradN, wdv, f_ip, geom):
         sigma = _sigma_cm(tuple(out[r] for r in range(6)))  # (3,3,E,Q)
-        return torch.einsum("eqaj,jieq,eq->eai", gradN, sigma, wdv)
+        R = torch.einsum("eqaj,jieq,eq->eai", gradN, sigma, wdv)
+        if f_ip is not None:
+            N0 = geom["shared"]["N"][0]                     # (Q, nd)
+            R = R - torch.einsum("qa,eqi,eq->eai", N0, f_ip, wdv)
+        return R
 
     def _xi_out(out, eps_rows, scalars, carrier) -> Tensor:
         """Updated state in the INPUT's layout: carrier (8, E*Q) rows
@@ -179,14 +181,13 @@ def make_j2_block_kernels(model) -> dict:
                 p_rows + [torch.zeros_like(p_rows[0])]).reshape(8, E * Q)
         return torch.movedim(torch.stack(p_rows), 0, -1)    # (E, Q, 7)
 
-    def block_r_and_k_and_xi(params, U_e, Up_e, geom, forcing_fn, t,
-                             xi_prev):
+    def block_r_and_k_and_xi(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         out, scalars, gradN, wdv, eps_rows, carrier = _solve(
             params, U_e, Up_e, geom, xi_prev)
         E, Q = wdv.shape
         alpha_prev = (xi_prev[6].reshape(E, Q) if carrier
                       else xi_prev[..., 6])
-        R = _residual(out, gradN, wdv, forcing_fn)
+        R = _residual(out, gradN, wdv, f_ip, geom)
 
         A, c, d_rows = consistent_tangent_rows(out, alpha_prev, scalars)
         mu, lam = scalars[0], scalars[1]
@@ -205,10 +206,10 @@ def make_j2_block_kernels(model) -> dict:
              - torch.einsum("eq,eqai,eqbk->eaibk", C3, v, v))
         return R, K, _xi_out(out, eps_rows, scalars, carrier)
 
-    def block_r(params, U_e, Up_e, geom, forcing_fn, t, xi_prev):
+    def block_r(params, U_e, Up_e, geom, f_ip, t, xi_prev):
         out, _scalars, gradN, wdv, _eps, _carrier = _solve(
             params, U_e, Up_e, geom, xi_prev)
-        return _residual(out, gradN, wdv, forcing_fn)
+        return _residual(out, gradN, wdv, f_ip, geom)
 
     # "xi_carrier": the drivers keep this block's state component-major
     # (8, E*Q) across the whole drive (fem/xi_carrier.py)

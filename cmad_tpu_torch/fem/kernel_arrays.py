@@ -6,19 +6,25 @@ cache, the assembled COO pattern with its dedup scatter, and the
 embedded-BC sparsity, built once per problem, with the segment-sum plans
 (``ops/segment_sum.py``) of every fixed sum of the FE path: the element
 residual scatter (which is also the transpose of the U gather), the COO
-dedup and the COO rows. The JAX package passes
+dedup, the COO rows and the Neumann side scatter. The JAX package passes
 them as one pytree so that they cross ``jit`` as traced arguments; here
 they are tensors on the device the FE problem runs on, and the Dirichlet
-arrays stay on the host, where the prescribed values are evaluated.
+arrays and the IP coordinates of the body forces stay on the host, where
+the prescribed values and the loads are evaluated.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 from cmad_tpu_torch.fem.dof import DBCArrays, build_dbc_arrays
+from cmad_tpu_torch.fem.neumann import (
+    NeumannSideArrays,
+    build_neumann_side_arrays,
+)
 from cmad_tpu_torch.fem.sparse_solve import (
     EmbeddedSparsity,
     build_embedded_sparsity,
@@ -53,11 +59,13 @@ class FEKernelArrays:
     embedded_sparsity: EmbeddedSparsity
     prescribed_indices: Tensor
     dbc_arrays: DBCArrays
+    # None without Neumann BCs
+    neumann_side_arrays: NeumannSideArrays | None
+    # per block with a body force: its IP coordinates (E*Q, 3), float64
+    body_force_coords_by_block: dict[str, np.ndarray]
 
 
 def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
-    import numpy as np
-
     from cmad_tpu_torch.fem.assembly import (
         assembled_coo_pattern,
         element_eq_indices,
@@ -92,6 +100,13 @@ def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
                              dev)
             for fi in range(num_fields))
 
+    body_coords = {}
+    if fe_problem.forcing_fns_by_block_idx:
+        body_coords = {
+            b: geom["per_elem"]["coords_ip"].reshape(-1, 3).to(
+                torch.float64).cpu().numpy()
+            for b, geom in fe_problem.geometry_cache.items()}
+
     rows, cols, dedup = assembled_coo_pattern(fe_problem)
     indptr = np.searchsorted(rows, np.arange(n_dofs + 1), side="left")
 
@@ -108,4 +123,8 @@ def build_fe_kernel_arrays(fe_problem: "FEProblem") -> FEKernelArrays:
         geometry_cache=fe_problem.geometry_cache,
         embedded_sparsity=build_embedded_sparsity(fe_problem, rows, cols),
         prescribed_indices=on(dof_map.prescribed_indices),
-        dbc_arrays=build_dbc_arrays(dof_map))
+        dbc_arrays=build_dbc_arrays(dof_map),
+        neumann_side_arrays=build_neumann_side_arrays(
+            mesh, dof_map, fe_problem.resolved_neumann_bcs,
+            fe_problem.side_quadrature, dev),
+        body_force_coords_by_block=body_coords)

@@ -1,12 +1,12 @@
 """3D mesh with element blocks, node sets, and side sets.
 
 Port of ``cmad_tpu/fem/mesh.py`` (numpy only; parity: reference
-``cmad/fem/mesh.py:184-636``): the :class:`Mesh` container, the
-bounding-box side sets a deck asks for with ``build coordinate
-sidesets``, and the element sizes. Exodus-convention naming so Exodus IO
-is a thin translation. The in-house builders (``StructuredHexMesh``,
-``hex_to_tet_split``) are not ported: the FE slice reads its meshes from
-Exodus files.
+``cmad/fem/mesh.py:184-636``): the :class:`Mesh` container, the in-house
+builders, the bounding-box side sets a deck asks for with ``build
+coordinate sidesets``, and the element sizes. Exodus-convention naming
+so Exodus IO is a thin translation. The structured-hex builder emits the
+``all`` block plus six ``{x,y,z}{min,max}_{nodes,sides}`` sets;
+``hex_to_tet_split`` applies the 6-tet body-diagonal split.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from cmad_tpu_torch.fem.elements import EntityType, FiniteElement, GEOMETRIC_FE
 from cmad_tpu_torch.fem.topology import (
     ElementFamily,
     FACES_PER_ELEMENT,
+    HEX_FACE_TO_TET_FACES,
+    HEX_TO_TET_LOCAL,
     LOCAL_EDGES,
     LOCAL_FACES,
     NODES_PER_ELEMENT,
@@ -134,6 +136,84 @@ class Mesh:
             EntityType.FACE: self.faces.shape[0],
             EntityType.CELL: self.connectivity.shape[0],
         }[entity_type]
+
+
+def StructuredHexMesh(lengths, divisions, origin=(0.0, 0.0, 0.0)) -> Mesh:
+    """Structured linear-hex box mesh with the six built-in node/side
+    sets; element index ``e = i*ny*nz + j*nz + k``."""
+    nx, ny, nz = divisions
+    if min(nx, ny, nz) < 1:
+        raise ValueError(f"divisions must be >= 1; got {divisions}")
+    axes = [np.linspace(o, o + L, d + 1)
+            for o, L, d in zip(origin, lengths, divisions, strict=True)]
+    X, Y, Z = np.meshgrid(*axes, indexing="ij")
+    nodes = np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
+
+    vid = np.arange((nx + 1) * (ny + 1) * (nz + 1),
+                    dtype=np.intp).reshape(nx + 1, ny + 1, nz + 1)
+    I, J, K = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    connectivity = np.stack([
+        vid[I, J, K], vid[I + 1, J, K], vid[I + 1, J + 1, K],
+        vid[I, J + 1, K],
+        vid[I, J, K + 1], vid[I + 1, J, K + 1], vid[I + 1, J + 1, K + 1],
+        vid[I, J + 1, K + 1]], axis=-1).reshape(-1, 8)
+
+    n_elems = nx * ny * nz
+    eid = np.arange(n_elems, dtype=np.intp).reshape(nx, ny, nz)
+
+    def side(elems, face):
+        return np.column_stack(
+            [elems, np.full(elems.shape, face, dtype=np.intp)])
+
+    node_sets = {
+        "xmin_nodes": vid[0].ravel(), "xmax_nodes": vid[-1].ravel(),
+        "ymin_nodes": vid[:, 0].ravel(), "ymax_nodes": vid[:, -1].ravel(),
+        "zmin_nodes": vid[:, :, 0].ravel(),
+        "zmax_nodes": vid[:, :, -1].ravel()}
+    side_sets = {
+        "xmin_sides": side(eid[0].ravel(), 5),
+        "xmax_sides": side(eid[-1].ravel(), 3),
+        "ymin_sides": side(eid[:, 0].ravel(), 2),
+        "ymax_sides": side(eid[:, -1].ravel(), 4),
+        "zmin_sides": side(eid[:, :, 0].ravel(), 0),
+        "zmax_sides": side(eid[:, :, -1].ravel(), 1)}
+
+    return Mesh(nodes=nodes, connectivity=connectivity,
+                element_family=ElementFamily.HEX_LINEAR,
+                element_blocks={"all": np.arange(n_elems, dtype=np.intp)},
+                node_sets=node_sets, side_sets=side_sets)
+
+
+def hex_to_tet_split(mesh: Mesh) -> Mesh:
+    """Split each hex into 6 positive-volume tets along the 0-6 body
+    diagonal; blocks/nodesets/sidesets remap accordingly."""
+    if mesh.element_family != ElementFamily.HEX_LINEAR:
+        raise ValueError("hex_to_tet_split requires a HEX_LINEAR mesh")
+
+    connectivity = mesh.connectivity[:, HEX_TO_TET_LOCAL].reshape(-1, 4)
+    blocks = {
+        name: (idx[:, None] * 6 + np.arange(6, dtype=np.intp)).ravel()
+        for name, idx in mesh.element_blocks.items()}
+
+    side_sets: dict[str, np.ndarray] = {}
+    for name, pairs in mesh.side_sets.items():
+        if pairs.shape[0] == 0:
+            side_sets[name] = np.empty((0, 2), dtype=np.intp)
+            continue
+        tet_pairs = HEX_FACE_TO_TET_FACES[pairs[:, 1]]   # (n, 2, 2)
+        tet_ids = pairs[:, 0, None] * 6 + tet_pairs[:, :, 0]
+        side_sets[name] = np.stack(
+            [tet_ids, tet_pairs[:, :, 1]], axis=-1).reshape(-1, 2)
+
+    return Mesh(nodes=mesh.nodes.copy(), connectivity=connectivity,
+                element_family=ElementFamily.TET_LINEAR,
+                element_blocks=blocks,
+                node_sets={k: v.copy() for k, v in mesh.node_sets.items()},
+                side_sets=side_sets,
+                element_block_ids=dict(mesh.element_block_ids),
+                node_set_ids=dict(mesh.node_set_ids),
+                side_set_ids=dict(mesh.side_set_ids))
 
 
 def coordinate_side_sets(mesh: Mesh, rel_tol: float = 1e-7):

@@ -59,6 +59,16 @@ loading does not depend on E).
     env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
         --mesh notch_h0.015.exo --max-iters 50 --model elastic \\
         --elastic-stress neohookean --gradient
+
+``--loads`` (with J2) loads the notch by a traction and a body force in
+place of the displacement ``load_y`` (``chip_smoke.loaded_deck``: ``surface
+flux bcs`` ``[equilibrium, ymax_sides, "0.0", "0.75 * t", "0.0"]`` and
+``body forces`` ``[equilibrium, "0.0", "-0.5 * t", "0.0"]``), the three
+symmetry clamps kept. Its ``--gradient`` is the notch calibration's on
+that loaded drive.
+
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.015.exo --max-iters 50 --loads
 """
 from __future__ import annotations
 
@@ -95,6 +105,9 @@ def main() -> int:
                     choices=("isotropic_linear", "neohookean"),
                     default="isotropic_linear",
                     help="the elastic model's Cauchy stress")
+    ap.add_argument("--loads", action="store_true",
+                    help="a traction on ymax_sides and a body force in "
+                         "place of the displacement load")
     args = ap.parse_args()
 
     sys.path.insert(0, str(REPO))
@@ -120,6 +133,10 @@ def main() -> int:
     elif args.effective_stress == "J2":
         deck["residuals"]["local residual"]["materials"]["block_1"][
             "plastic"]["effective stress"] = {"J2": {}}
+    if args.loads:
+        from chip_smoke import loaded_deck
+
+        deck = loaded_deck(deck)
     gr = deck["residuals"]["global residual"]
     gr["driver"] = "stepped"
     gr["nonlinear max iters"] = args.max_iters
@@ -148,6 +165,9 @@ def main() -> int:
         "mesh": args.mesh, "max_iters": args.max_iters,
         **({"model": "elastic", "elastic_stress": args.elastic_stress}
            if elastic else {"effective_stress": args.effective_stress}),
+        **({"loads": {k: deck[k] for k in ("surface flux bcs",
+                                            "body forces")}}
+           if args.loads else {}),
         "n_elems": int(fe.mesh.connectivity.shape[0]),
         "n_nodes": int(fe.mesh.nodes.shape[0]),
         "n_dofs": int(fe.dof_map.num_total_dofs),
