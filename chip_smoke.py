@@ -91,17 +91,19 @@ the built library's SASS counts them). The paths driven:
   ``make_batched_return_map(model, specialize=True)`` at 1,048,576 points
   x 2 steps against the generic 7-dof Newton (mp-hosford); the deck as
   written through the ``primal`` command at 480 tets with its Exodus
-  output, against the library drive bit for bit (and, on the J2 deck,
+  output, its first step against the library drive bit for bit (and, on
+  the J2 deck,
   ``fe_load_match`` in write mode and one ``objective`` for each of
   ``fe_displacement_l2``, ``fe_load_match`` and ``fe_weighted_sum``; in
-  fe-cli); at 480 tets, the load in two steps, Newton at 1e-12, the card
-  (the point-batch block, CG at 1e-10) against the CPU, and the stepped
-  gradient and Hessian against central differences and the scan Hessian
+  fe-cli); at 480 tets, one step of twice the deck's load, Newton at
+  1e-12, the card (the point-batch block, CG at 1e-10) against the CPU,
+  the card's drive twice bit for bit, and the stepped gradient and
+  Hessian against central differences and the scan Hessian
   (fe-hosford-small); at 47,628 tets with the records' solver and Newton
-  cap 50 the primal against cmad_tpu's CPU f64 ||U|| and max |alpha|,
-  its last step again, bit for bit, with the local Newton's
-  iterations per step and an assembly's host and device time, and one
-  gradient against cmad_tpu's (fe-hosford). No TPU kernel lies on this
+  cap 50, one step of half the deck's first load, the primal against
+  cmad_tpu's CPU f64 ||U|| and max |alpha|, with the local Newton's
+  iterations and an assembly's host and device time, the assembly again
+  bit for bit, and one gradient against cmad_tpu's (fe-hosford). No TPU kernel lies on this
   path: it runs the segment sums and ``csr_matvec``, and never
   ``j2_soa_step``;
 - the closed-form elastic model on the generic per-point block (the
@@ -145,6 +147,20 @@ the built library's SASS counts them). The paths driven:
   cmad_tpu's and timed at 47,628; the manufactured-solution cube with an
   exact traction and body force on the port's ``StructuredHexMesh`` at 4,
   8 and 16 hexes a side (the L2 rate, and the card against the CPU).
+- the anisotropic yields, where no TPU kernel lies: the reduced
+  principal-Hosford (a = 100) and Hill maps through
+  ``make_batched_return_map(specialize=True)`` at 1,048,576 points x 2
+  steps, both forms, a material rotation, against the 7-dof residual and
+  the generic Newton; Barlat through the generic Newton against the CPU;
+  a gradient in Y against a central difference; deck (b) with Hill and
+  with principal Hosford through ``primal`` against the CPU (mp-aniso);
+  ``examples/notch_hosford_principal.yaml`` as written through
+  ``primal`` at 480 tets against cmad_tpu's ||U|| per step, its stepped
+  gradient over the first two steps against cmad_tpu's, Hill on the
+  480-tet notch against the CPU, and the deck's first step at 47,628
+  tets against cmad_tpu's ||U|| with its local iterations, an assembly's
+  host and device time and the assembly again bit for bit
+  (fe-principal). These run the segment sums and ``csr_matvec``.
 
 Before the paths, ``j2_soa_step`` is held to its plain version at
 1,000,003 points (f64, f32, and on the wide view), at the FE dispatch's
@@ -411,24 +427,21 @@ HESS_SMALL_RTOL, HESS_SMALL_FD_RTOL, HESS_JDOT_RTOL = 1e-7, 1e-5, 1e-8
 CAL_Y_RTOL = 1e-3
 CAL_TPU_RECORD = (1.999789, 30)
 # the Hosford notch (examples/notch_hosford.yaml as written: a = 100, the
-# total form): cmad_tpu on the CPU in f64 with sparse-direct solves, the
-# stepped driver, Newton cap 50 (tools/fe_notch_reference.py --mesh
-# notch_h0.015.exo --max-iters 50 --effective-stress hosford --gradient,
-# jax 0.9.0; the drive took 1284 s and the gradient 1012 s on the CPU
-# host): ||U|| and max |alpha| after each step, and J and dJ/dc of the
-# notch calibration at Y = 2.6 (GRAD_Y) against the drive at Y = 2.0
-FE_HOSFORD_REF_U_NORMS = (0.7867706196622157, 1.5136325048601345,
-                          2.0870794364606446, 2.653241683812782)
-FE_HOSFORD_REF_ALPHA_MAX = (0.06548113765968518, 0.11197884642607306,
-                            0.14088400008567625, 0.1662051122245803)
-FE_HOSFORD_GRAD_REF_J = 1.2474083586164162
-FE_HOSFORD_GRAD_REF_DJ_DC = 9.079995240406618
-# the at-scale records' final ||U|| (benchmarks/notch_hosford/
-# scale_ours_47628_two_level_stepped.json: TPU, f32; scale_reference_47628
-# .json: the original cmad on a host CPU, f64, SuperLU), printed beside
-# ours as context, not as a gate
-HOSFORD_TPU_RECORD_U = 2.653198003768921
-HOSFORD_REFERENCE_U = 2.6531950649818503
+# total form) at 47,628 tets, FE_HOSFORD_STEPS load steps of
+# FE_HOSFORD_STEP_SIZE (half the deck's first step: the depth cut that
+# holds the call's time since the principal-Hosford phase came; the deck
+# takes 4 steps of 1.0): cmad_tpu on the CPU in f64 with sparse-direct
+# solves, the stepped driver, Newton cap 50 (tools/fe_notch_reference.py
+# --mesh notch_h0.015.exo --max-iters 50 --effective-stress hosford
+# --steps 1 --step-size 0.5 --gradient, jax 0.9.0; the drive took 369 s
+# and the gradient 256 s on the CPU host): ||U|| and max |alpha| after
+# each step, and J and dJ/dc of the notch calibration at Y = 2.6 (GRAD_Y)
+# against the drive at Y = 2.0
+FE_HOSFORD_STEPS, FE_HOSFORD_STEP_SIZE = 1, 0.5
+FE_HOSFORD_REF_U_NORMS = (0.3723061983288831,)
+FE_HOSFORD_REF_ALPHA_MAX = (0.03472498438591399,)
+FE_HOSFORD_GRAD_REF_J = 0.023853615083265927
+FE_HOSFORD_GRAD_REF_DJ_DC = 0.21698481185031412
 # fe-hosford-small (480 tets, Newton 1e-12, CG at 1e-10) card vs CPU
 # (plain path, direct): both Newtons converge to 1e-12 from the same
 # start, so U agrees to about that over K's conditioning (2.3e-14 at the
@@ -474,6 +487,70 @@ NOTCH_HOSFORD_DECK = {
                "global residual": ["u"],
                "local residual": {"block_1": ["cauchy", "alpha"]}},
 }
+# the principal-Hosford notch (examples/notch_hosford_principal.yaml:
+# hosford_principal, a = 100, total form, the deck's local Newton), from
+# cmad_tpu on the CPU in f64 with sparse-direct solves (tools/
+# fe_notch_reference.py --effective-stress hosford_principal, jax 0.9.0).
+# The deck as written (--mesh notch_h0.080.exo: 480 tets, 4 steps,
+# Newton cap 15; the drive took 22 s on the CPU host): ||U|| after each
+# step; J and dJ/dc of the notch calibration at Y = 2.6 (GRAD_Y) against
+# its first FE_PRINCIPAL_GRAD_STEPS steps, over them (--steps 2
+# --gradient; 43 s): the second step differentiates the reduced solve in
+# the state the first left. Its first step at 47,628 tets (--mesh
+# notch_h0.015.exo --max-iters 50 --steps 1; 299 s, XLA host devices 8):
+# ||U|| and max |alpha|
+FE_PRINCIPAL_SMALL_REF_U_NORMS = (0.09955512032634838, 0.1835469830024206,
+                                  0.2653428348921893, 0.34632987806256244)
+FE_PRINCIPAL_GRAD_STEPS = 2
+FE_PRINCIPAL_GRAD_REF_J = 0.21578107658477094
+FE_PRINCIPAL_GRAD_REF_DJ_DC = 1.3903294245085447
+FE_PRINCIPAL_REF_U_NORM = 0.7850700394663448
+FE_PRINCIPAL_REF_ALPHA_MAX = 0.08128408200270654
+# examples/notch_hosford_principal.yaml as written, as a dict;
+# tests/cli/test_torch_cli.py holds it equal to the file
+NOTCH_PRINCIPAL_DECK = {
+    **copy.deepcopy(NOTCH_HOSFORD_DECK),
+    "problem": {"type": "fe", "name": "notch_hosford_principal"},
+    "output": {**NOTCH_HOSFORD_DECK["output"], "path": "results_principal"}}
+NOTCH_PRINCIPAL_DECK["residuals"]["local residual"]["materials"]["block_1"][
+    "plastic"]["effective stress"] = {"hosford_principal": {"a": 100.0}}
+# Hill's coefficients (tests/fem/test_coupled_block_fastpath.py) and a
+# material rotation for the anisotropic material-point maps
+HILL = {"F": 0.45, "G": 0.55, "H": 0.5, "L": 1.4, "M": 1.7, "N": 1.55}
+ANISO_ROTATION = np.array([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0],
+                           [0.48, 0.64, 0.6]])
+# Barlat Yld2004-18p (tests/models/test_yield_gradients.py's coefficients)
+BARLAT = dict(zip(
+    ("sp_12", "sp_13", "sp_21", "sp_23", "sp_31", "sp_32", "sp_44",
+     "sp_55", "sp_66", "dp_12", "dp_13", "dp_21", "dp_23", "dp_31",
+     "dp_32", "dp_44", "dp_55", "dp_66", "a"),
+    (0.9, 1.1, 1.05, 0.95, 1.2, 0.8, 1.0, 1.1, 0.9,
+     1.1, 0.9, 0.95, 1.05, 0.85, 1.15, 1.0, 0.9, 1.1, 8.0), strict=True))
+# mp-aniso: each reduced and generic Newton capped at MP_ANISO_ITERS (a
+# point that converged took at most 25 on the CPU at 16,384 points; at
+# a = 100 with the map's 4-probe line search a few points in a million
+# cycle, in either Newton, and every iteration costs the whole batch);
+# a point counts as converged when its 7-dof residual at the map's state
+# is at most ANISO_RESID_TOL (where the reduced Newton converged its
+# states measured 1e-16 to 1e-14 on the card), and at most
+# ANISO_MAX_AT_CAP of
+# the reduced map's points may miss it; Barlat's card against the CPU on
+# its first N_BARLAT_CPU points; the gradient's central difference in Y at
+# h = ANISO_GRAD_H
+MP_ANISO_ITERS = 40
+ANISO_RESID_TOL = 1e-12
+ANISO_MAX_AT_CAP = 64
+# the generic 7-dof Newton runs on the first N_ANISO_GENERIC points (on
+# the principal model it costs 2.4x the reduced map at the same size);
+# deck b's first ANISO_CPU_STEPS steps are driven again on the CPU
+N_ANISO_GENERIC = N_GENERIC // 4
+ANISO_CPU_STEPS = 20
+N_BARLAT_CPU = 1024
+ANISO_GRAD_H = 1e-3
+ANISO_GRAD_RTOL = 1e-6
+# fe-principal: Hill on 480 tets (one step, t = 2) at Newton tolerance
+# 1e-12, card (cg + two_level at 1e-10) against the CPU (direct)
+FE_HILL_BOUND = 1e-10
 # the elastic notch: examples/notch_hosford.yaml's mesh, BCs, E and nu
 # with the closed-form elastic model (type: elastic, def_type: full_3d),
 # the records' solver, Newton cap 50. cmad_tpu on the CPU in f64 with
@@ -597,9 +674,11 @@ def save_displacements(state, path: Path) -> Path:
 def notch_deck(mesh: str, solver: dict, effective_stress: str = "J2"
                ) -> dict:
     """The notch deck on ``mesh`` (a file of examples/meshes) with the
-    effective stress ``"J2"`` (swapped in) or ``"hosford"`` (the deck's,
-    a = 100)."""
-    es = {"J2": {"J2": {}}, "hosford": {"hosford": {"a": 100.0}}}
+    effective stress ``"J2"`` (swapped in), ``"hosford"`` (the deck's,
+    a = 100), ``"hosford_principal"`` (a = 100) or ``"hill"`` (HILL)."""
+    es = {"J2": {"J2": {}}, "hosford": {"hosford": {"a": 100.0}},
+          "hosford_principal": {"hosford_principal": {"a": 100.0}},
+          "hill": {"hill": dict(HILL)}}
     return {
         "problem": {"type": "fe", "name": "notch_hosford"},
         "discretization": {"mesh file": str(MESHES / mesh),
@@ -632,6 +711,14 @@ def notch_deck(mesh: str, solver: dict, effective_stress: str = "J2"
             "load_y": ["equilibrium", 1, "ymax_sides", "0.01 * t"]}},
         "linear solver": dict(solver),
     }
+
+
+def with_steps(deck: dict, n: int, size: float = 1.0) -> dict:
+    """``deck`` (a notch deck) cut to ``n`` load steps of ``size``, t =
+    size, 2 size, ... (the deck: 4 steps of 1.0): the depth cuts that
+    hold the call's time."""
+    deck["discretization"].update({"num steps": n, "step size": size})
+    return deck
 
 
 def loaded_deck(deck: dict) -> dict:
@@ -876,10 +963,12 @@ MP_REF = {'rules': {'hessian:adjoint': "sensitivity.type: 'cmad hessian' "
 
 
 def mp_deck(where: Path, case: str, Y: float = 200.0,
-            qoi: bool = False) -> dict:
+            qoi: bool = False, effective_stress: dict | None = None
+            ) -> dict:
     """Material-point deck ``case`` ("a" or "b") as a dict, its history
     written to ``where``: at ``Y``, with its QoI (data ``where/data_<case>
-    .npy``) when ``qoi``."""
+    .npy``) when ``qoi``, with the effective-stress section
+    ``effective_stress`` in place of J2 when given."""
     n = MP_STEPS[case]
     nd = 2 if case == "a" else 1
     eps = np.r_[0.0, np.linspace(0.0008, MP_LAST_STRAIN[case], n)]
@@ -908,6 +997,8 @@ def mp_deck(where: Path, case: str, Y: float = 200.0,
         "deformation": {"history_file": str(where / f"F_{case}.npy")},
         "solver": {"newton": {}},
     }
+    if effective_stress is not None:
+        deck["parameters"]["plastic"]["effective stress"] = effective_stress
     if qoi:
         deck["qoi"] = {"name": ("calibration" if case == "a"
                                 else "uniaxial_calibration"),
@@ -3149,8 +3240,11 @@ def main() -> int:
     del ebundle, e_state
     # examples/notch_hosford.yaml as written (480 tets, the deck's Newton
     # cap, the default direct solve, Exodus with u, cauchy and alpha), from
-    # a copy of its directory: the primal's file against the library drive
-    # and the Cauchy stress the writer evaluates, bit for bit; then
+    # a copy of its directory: the primal's file over the deck's first step
+    # against the library drive of that step and the Cauchy stress the
+    # writer evaluates, bit for bit (a step reads only the steps before it;
+    # the library drove all four steps until the principal-Hosford phase
+    # came, and a Hosford step costs 8-14 s of host time); then
     # fe_load_match in write mode (the y reaction on ymax_sides after each
     # step) and one objective for each of fe_displacement_l2,
     # fe_load_match (against 1.1 x that reaction) and fe_weighted_sum of
@@ -3171,9 +3265,12 @@ def main() -> int:
         cli_t["primal (notch_hosford.yaml)"] = time.perf_counter() - t0
         exo = read_results(ex / "results" / "notch_primal.exo")
         hbundle = build_fe_problem_from_deck(
-            copy.deepcopy(NOTCH_HOSFORD_DECK))
+            with_steps(copy.deepcopy(NOTCH_HOSFORD_DECK), 1))
         h_state, h_log = fe_primal_drive(hbundle)
         n_t = len(h_state.t_history)
+        h_norms = [float(np.linalg.norm(np.stack(
+            [exo.nodal[f"u_{c}"][k] for c in "xyz"], axis=1)))
+            for k in range(1, len(exo.times))]
         geom = hbundle.fe_problem.geometry_cache
 
         def per_elem(per_ip):
@@ -3189,11 +3286,11 @@ def main() -> int:
                                axis=1).reshape(-1) for k in range(n_t)]),
             np.stack([h_state.U_at(k) for k in range(n_t)]))
         checks["notch_hosford.yaml primal alpha"] = np.array_equal(
-            exo.element["alpha"]["block_1"],
+            exo.element["alpha"]["block_1"][:n_t],
             np.stack([per_elem(h_state.xi_at(k, "block_1")[..., 6:7])[:, 0]
                       for k in range(n_t)]))
         checks["notch_hosford.yaml primal cauchy"] = all(
-            np.array_equal(exo.element[f"cauchy_{c}"]["block_1"],
+            np.array_equal(exo.element[f"cauchy_{c}"]["block_1"][:n_t],
                            cauchy[..., i]) for i, c in enumerate(order))
         hos_alpha = float(exo.element["alpha"]["block_1"][-1].max())
     finally:
@@ -3233,10 +3330,10 @@ def main() -> int:
     checks["reaction written after every step"] = (
         reaction.shape == (5,) and reaction[0] == 0.0
         and bool(np.all(np.diff(reaction) > 0.0)))
-    h_norms = [float(np.linalg.norm(h_state.U_at(k))) for k in range(1, n_t)]
     say("fe-cli", f"examples/notch_hosford.yaml (480 tets, Hosford a = 100)"
                   f": ||U|| per step {h_norms}"
-                  f", max alpha {hos_alpha!r}, Newton {h_log}; on the "
+                  f", max alpha {hos_alpha!r}, the library's first step's "
+                  f"Newton {h_log}; on the "
                   f"J2 deck the ymax_sides y reaction per step "
                   f"{reaction.tolist()}, J per QoI {qoi_J}")
     del hbundle, h_state, j2_state
@@ -3260,28 +3357,46 @@ def main() -> int:
     lap("fe-cli")
 
     # ---------------- fe-hosford-small ----------------
-    # the deck's Hosford (a = 100) on 480 tets, its load in two steps, at
-    # a Newton tolerance of 1e-12: the card (the point-batch block, cg +
-    # two_level at 1e-10) against the CPU (the plain path, direct solves);
+    # the deck's Hosford (a = 100) on 480 tets, one load step of twice the
+    # deck's size (t = 2), at a Newton tolerance of 1e-12: the card (the
+    # point-batch block, cg + two_level at 1e-10) against the CPU (the
+    # plain path, direct solves), and the card's drive again from its start
+    # bit for bit (U, xi, the Newton path and the CG counts; at 47,628 tets
+    # fe-hosford repeats one assembly bit for bit, and the J2 determinism
+    # phase whole drives through the same CG);
     # then, against that drive's U, d2J/dY2 at Y = HESS_Y (no transform)
     # from the stepped Hessian, against a central difference of the card's
     # gradient (whose J's central difference checks the gradient) and the
     # scan Hessian
-    def two_steps(deck):
-        """The deck's load in two steps of twice the size (t = 2, 4): the
-        depth cut that holds this phase's time."""
-        deck["discretization"].update({"num steps": 2, "step size": 2.0})
-        return deck
-
-    hos = two_steps(notch_deck(FE_SMALL_MESH, FE_CG_TIGHT, "hosford"))
+    hos = with_steps(notch_deck(FE_SMALL_MESH, FE_CG_TIGHT, "hosford"), 1,
+                     2.0)
     hos["residuals"]["global residual"].update(
         {"nonlinear absolute tol": GRAD_SMALL_TOL,
          "nonlinear relative tol": GRAD_SMALL_TOL})
     hb = build_fe_problem_from_deck(hos)
     t0 = time.perf_counter()
-    gpu_h, _log_h, _st_h, small_counts, _pk = fe_drive(
+    gpu_h, _log_h, st_h, small_counts, _pk = fe_drive(
         "fe-hosford-small", hb, k1_per_assembly=0)
     card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu_h2, _log_h2, st_h2, _c2, _p2 = fe_drive(
+        "fe-hosford-small", hb, k1_per_assembly=0)
+    again_s = time.perf_counter() - t0
+    paths = [[s["newton_iters"] for s in st] for st in (st_h, st_h2)]
+    cgs = [[s.get("cg_iters", []) for s in st] for st in (st_h, st_h2)]
+    same_U = np.array_equal(np.stack(gpu_h.U_history),
+                            np.stack(gpu_h2.U_history))
+    same_xi = np.array_equal(gpu_h.xi_at(1, "block_1"),
+                             gpu_h2.xi_at(1, "block_1"))
+    say("fe-hosford-small", f"the drive again from its start ({again_s:.3f}"
+                            f" s): Newton iterations per step {paths[0]} and"
+                            f" {paths[1]}; CG iterations equal: "
+                            f"{cgs[0] == cgs[1]}; U bit-identical: "
+                            f"{same_U}; xi bit-identical: {same_xi}")
+    if not (same_U and same_xi and paths[0] == paths[1]
+            and cgs[0] == cgs[1]):
+        raise RuntimeError("fe-hosford-small: the repeated drive differs")
+    del gpu_h2
     cb = build_fe_problem_from_deck(
         {**copy.deepcopy(hos), "linear solver": dict(FE_DIRECT)},
         device="cpu")
@@ -3294,7 +3409,7 @@ def main() -> int:
     U_gpu, U_cpu = np.stack(gpu_h.U_history), np.stack(cpu_h.U_history)
     small_rel = float(np.abs(U_gpu - U_cpu).max() / np.abs(U_cpu).max())
     small_norms = [float(np.linalg.norm(u)) for u in gpu_h.U_history[1:]]
-    say("fe-hosford-small", f"480 tets x 2 steps (t = 2, 4), Newton tol "
+    say("fe-hosford-small", f"480 tets x 1 step (t = 2), Newton tol "
                             f"{GRAD_SMALL_TOL:g}: card (point-batch block, "
                             f"cg + two_level 1e-10) {card_s:.3f} s vs CPU "
                             f"(plain path, direct) {cpu_s:.3f} s: "
@@ -3305,9 +3420,9 @@ def main() -> int:
         raise RuntimeError("fe-hosford-small: card and CPU disagree")
     truth_hs = save_truth(gpu_h, "u_truth_hosford_480.npy")
     del hb, cb, gpu_h, cpu_h
-    hb = build_fe_problem_from_deck(two_steps(hess_deck(
+    hb = build_fe_problem_from_deck(with_steps(hess_deck(
         FE_SMALL_MESH, FE_CG_TIGHT, truth_hs, GRAD_SMALL_TOL,
-        effective_stress="hosford")))
+        effective_stress="hosford"), 1, 2.0))
     p0, s0, ts, hess = build_fe_stepped_hessian_fn(hb)
     t0 = time.perf_counter()
     J_h, g_h, H_h, asym_h = hess.with_gradient(p0, s0, ts)
@@ -3319,9 +3434,10 @@ def main() -> int:
     fd_g = (Jp - Jm) / (2 * GRAD_SMALL_H)
     fd_H = (float(gp[0]) - float(gm[0])) / (2 * GRAD_SMALL_H)
     t0 = time.perf_counter()
-    H_scan = float(fs.fe_hessian(build_fe_problem_from_deck(two_steps(
+    H_scan = float(fs.fe_hessian(build_fe_problem_from_deck(with_steps(
         hess_deck(FE_SMALL_MESH, FE_CG_TIGHT, truth_hs, GRAD_SMALL_TOL,
-                  driver="scan", effective_stress="hosford"))))[0][0, 0])
+                  driver="scan", effective_stress="hosford"), 1, 2.0)))[
+        0][0, 0])
     scan_s = time.perf_counter() - t0
     rel = {"grad": abs(g_h - fd_g) / abs(fd_g),
            "fd": abs(H_h - fd_H) / abs(fd_H),
@@ -3346,14 +3462,16 @@ def main() -> int:
 
     # ---------------- fe-hosford (this slice's main path) ----------------
     # examples/notch_hosford.yaml's Hosford at the records' size (47,628
-    # tets) with the records' solver and Newton cap 50: the primal against
-    # cmad_tpu's ||U|| and max |alpha| per step, its last step again bit
-    # for bit; the local Newton's iterations per step; an assembly's
-    # host and device time; then one gradient of the notch calibration
-    # against cmad_tpu's
+    # tets) with the records' solver and Newton cap 50, FE_HOSFORD_STEPS
+    # load steps of FE_HOSFORD_STEP_SIZE: the primal against cmad_tpu's
+    # ||U|| and max |alpha| per step; the local Newton's iterations per
+    # step; an assembly's host and device time, and the assembly again
+    # bit for bit; then one gradient of the notch calibration against
+    # cmad_tpu's
     t0 = time.perf_counter()
-    bundle = build_fe_problem_from_deck(notch_deck(FE_MESH, FE_RECORDS,
-                                                   "hosford"))
+    bundle = build_fe_problem_from_deck(with_steps(notch_deck(
+        FE_MESH, FE_RECORDS, "hosford"), FE_HOSFORD_STEPS,
+        FE_HOSFORD_STEP_SIZE))
     fe = bundle.fe_problem
     say("fe-hosford", f"{FE_MESH}: {fe.mesh.connectivity.shape[0]} tets, "
                       f"{fe.dof_map.num_total_dofs} dofs, the point-batch "
@@ -3386,16 +3504,14 @@ def main() -> int:
         norms, FE_HOSFORD_REF_U_NORMS, strict=True)), max(
         abs(a - b) / b for a, b in zip(alphas, FE_HOSFORD_REF_ALPHA_MAX,
                                        strict=True)))
-    say("fe-hosford", f"4 steps in {drive_s:.3f} s ({drive_s / 4:.3f} s per "
-                      f"step), peak memory {peak / 2**30:.3f} GiB; ||U|| per "
-                      f"step {norms}, max |alpha| {alphas}; against "
-                      f"cmad_tpu (CPU f64, direct, Newton cap 50) "
+    say("fe-hosford", f"{FE_HOSFORD_STEPS} steps in {drive_s:.3f} s "
+                      f"({drive_s / FE_HOSFORD_STEPS:.3f} s per step), peak "
+                      f"memory {peak / 2**30:.3f} GiB; ||U|| per step "
+                      f"{norms}, max |alpha| {alphas}; against cmad_tpu "
+                      f"(CPU f64, direct, Newton cap 50) "
                       f"{list(FE_HOSFORD_REF_U_NORMS)}, "
                       f"{list(FE_HOSFORD_REF_ALPHA_MAX)}: max rel err "
-                      f"{worst:.3e} (bound {FE_REF_RTOL:g}); the records' "
-                      f"final ||U|| (context only, the deck's Newton cap "
-                      f"15): TPU f32 {HOSFORD_TPU_RECORD_U!r}, the "
-                      f"original cmad f64 {HOSFORD_REFERENCE_U!r}")
+                      f"{worst:.3e} (bound {FE_REF_RTOL:g})")
     if not worst <= FE_REF_RTOL:
         raise RuntimeError("fe-hosford: the drive misses cmad_tpu's answer")
     # one assembly at the last step (the point-batch block, the COO dedup,
@@ -3405,9 +3521,11 @@ def main() -> int:
 
     ka, params = fe.kernel_arrays, params_by_block_from_models(fe)
     t = float(state.t_history[-1])
-    U_prev = torch.as_tensor(state.U_at(3), dtype=fe.dtype, device=dev)
-    U = torch.as_tensor(state.U_at(4), dtype=fe.dtype, device=dev)
-    xi_prev = {"block_1": torch.as_tensor(state.xi_at(3, "block_1"),
+    last = FE_HOSFORD_STEPS
+    U_prev = torch.as_tensor(state.U_at(last - 1), dtype=fe.dtype,
+                             device=dev)
+    U = torch.as_tensor(state.U_at(last), dtype=fe.dtype, device=dev)
+    xi_prev = {"block_1": torch.as_tensor(state.xi_at(last - 1, "block_1"),
                                           dtype=fe.dtype, device=dev)}
 
     def assemble():
@@ -3417,58 +3535,47 @@ def main() -> int:
         return K_data, K_ii, R
 
     with torch.no_grad():
-        host = []
+        host, outs = [], []
         for _ in range(2):
             sync()
             t0 = time.perf_counter()
-            assemble()
+            outs.append(assemble())
             sync()
             host.append(time.perf_counter() - t0)
         local.log = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the device's activity only: recording the host's operations too
+        # takes several times as long to process, at ~20,000 kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             assemble()
             sync()
         asm_iters, local.log = local.log[0][0], None
+    # the assembly repeated bit for bit (a repeated drive would cost as
+    # much as the drive; fe-hosford-small repeats its whole drive on the
+    # same block at 480 tets, the J2 determinism phase whole drives at
+    # this size)
+    same = all(torch.equal(a, b) for a, b in zip(*outs, strict=True))
     kernels = [ev for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     asm_dev = sum(ev.time_range.elapsed_us() for ev in kernels) * 1e-3
     asm_host = min(host) * 1e3
-    say("fe-hosford", f"one point-batch assembly at step 4 ({asm_iters} "
+    say("fe-hosford", f"one point-batch assembly at step {last} "
+                      f"({asm_iters} "
                       f"local iterations of the slowest point): host "
                       f"{asm_host:.2f} ms (best of 2, "
                       f"{[round(h * 1e3, 2) for h in host]}), device "
                       f"{asm_dev:.2f} ms in {len(kernels)} kernels "
                       f"(traced), so the device is busy "
-                      f"{asm_dev / asm_host:.1%} of it")
-    # the drive again from its own state at t = 3 (step 4; step 1 alone
-    # takes 60-65% of a drive, and since the material-point phase came
-    # one step is repeated where two were): bit for bit the same U, xi,
-    # Newton path and CG counts
-    state2, _log2, stats2, _c2, _p2 = fe_drive(
-        "fe-hosford", bundle, k1_per_assembly=0,
-        t_schedule=state.t_history[3:], U_init=state.U_at(3),
-        xi_init_by_block={"block_1": state.xi_at(3, "block_1")})
-    paths = [[s["newton_iters"] for s in st] for st in (stats[3:], stats2)]
-    cgs = [[s.get("cg_iters", []) for s in st] for st in (stats[3:], stats2)]
-    same_U = np.array_equal(np.stack(state.U_history[3:]),
-                            np.stack(state2.U_history))
-    same_xi = np.array_equal(state.xi_at(4, "block_1"),
-                             state2.xi_at(1, "block_1"))
-    say("fe-hosford", f"step 4 again from the drive's state at t = 3: "
-                      f"Newton iterations per step {paths[0]} and "
-                      f"{paths[1]}; CG iterations equal: {cgs[0] == cgs[1]};"
-                      f" U bit-identical: {same_U}; xi bit-identical: "
-                      f"{same_xi}")
-    if not (same_U and same_xi and paths[0] == paths[1]
-            and cgs[0] == cgs[1]):
-        raise RuntimeError("fe-hosford: the repeated steps differ")
+                      f"{asm_dev / asm_host:.1%} of it; the two "
+                      f"assemblies' R and K bit for bit: {same}")
+    if not same:
+        raise RuntimeError("fe-hosford: the repeated assembly differs")
     truth_h = save_truth(state, "u_truth_hosford_47628.npy")
-    del bundle, fe, state, state2, U, U_prev, xi_prev, prof
+    del bundle, fe, state, U, U_prev, xi_prev, outs, prof
     sync()
     torch.cuda.empty_cache()
-    gbundle = build_fe_problem_from_deck(grad_deck(
-        FE_MESH, FE_RECORDS, truth_h, effective_stress="hosford"))
+    gbundle = build_fe_problem_from_deck(with_steps(grad_deck(
+        FE_MESH, FE_RECORDS, truth_h, effective_stress="hosford"),
+        FE_HOSFORD_STEPS, FE_HOSFORD_STEP_SIZE))
     p0, s0, ts, vg = build_fe_stepped_vg(gbundle)
     gstats: dict = {}
     sync()
@@ -4052,6 +4159,447 @@ def main() -> int:
                     f"{time.perf_counter() - t_mp:.1f} s)")
     lap("mp-stack")
 
+    # ---------------- mp-aniso (this slice's main path) ----------------
+    # the anisotropic yields on the material-point path (no TPU kernel lies
+    # on it: cmad_tpu runs it as XLA code, so none of the nine kernels may
+    # launch). The reduced return maps through make_batched_return_map
+    # (specialize=True) at N_GENERIC points x 2 steps in both forms,
+    # principal Hosford (a = 100) and Hill, with a material rotation, each
+    # state held to the 7-dof residual and, on the first N_ANISO_GENERIC
+    # points, against the generic 7-dof Newton on the same model; Barlat
+    # through the generic Newton at N_GRAD points against the port on the
+    # CPU; the principal map's derivative in Y of a weighted sum of sigma
+    # against a central difference; deck b with Hill and with principal
+    # Hosford through the primal command, its first ANISO_CPU_STEPS steps
+    # against the CPU
+    from torch.func import vmap
+
+    from cmad_tpu_torch.cli import mp_subcommands as mps
+    from cmad_tpu_torch.cli.common import build_mp_problem
+
+    reset_counts()
+    dt = torch.float64
+
+    def aniso_material(es, rotation=ANISO_ROTATION):
+        return {**MATERIAL, "rotation matrix": rotation,
+                "plastic": {**MATERIAL["plastic"], "effective stress": es}}
+
+    def aniso_fields(gu):
+        return GlobalFieldsAtPoint({"u": gu.new_zeros(gu.shape[:-1])},
+                                   {"u": gu})
+
+    g = sym_grad(N_GENERIC, dt)
+    z, g2, x0 = torch.zeros_like(g), (1.7 * g).contiguous(), \
+        aos_zero(N_GENERIC, dt)
+
+    def aniso_steps(step, pv, n=N_GENERIC):
+        """Two chained steps from rest on the first ``n`` points: (xi1,
+        sigma1, xi2, sigma2), the host clock around them (synchronized)
+        and the peak memory."""
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xi1, s1 = step(x0[:n], g[:n], z[:n], pv)
+        xi2, s2 = step(xi1, g2[:n], g[:n], pv)
+        sync()
+        return ((xi1, s1, xi2, s2), time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    mu = MATERIAL["elastic"]["E"] / (2.0 * (1.0 + MATERIAL["elastic"]["nu"]))
+    aniso_atol = GENERIC_TOL_FACTOR * 2.0 * mu * newton_tols("mp_local",
+                                                               dt)[0]
+    for label, es in (("principal", {"hosford_principal": {"a": 100.0}}),
+                      ("hill", {"hill": dict(HILL)})):
+        for form, cls in (("rate", SmallRateElasticPlastic),
+                          ("total", SmallElasticPlastic)):
+            model = cls(Parameters(aniso_material(es), dtype=dt))
+            pv = model.parameters.values
+            full = vmap(model.residual_fun, in_dims=(0, 0, None, 0, 0))
+
+            def settled(out, n=N_GENERIC, pv=pv, full=full):
+                """Per point, whether the 7-dof residual at each step's
+                state is below ANISO_RESID_TOL: the Newton converged."""
+                r1 = full(out[0], x0[:n], pv, aniso_fields(g[:n]),
+                          aniso_fields(z[:n]))
+                r2 = full(out[2], out[0], pv, aniso_fields(g2[:n]),
+                          aniso_fields(g[:n]))
+                return ((r1.norm(dim=-1) <= ANISO_RESID_TOL)
+                        & (r2.norm(dim=-1) <= ANISO_RESID_TOL))
+
+            with torch.no_grad():
+                red_out, red_s, red_peak = aniso_steps(make_batched_return_map(
+                    model, max_iters=MP_ANISO_ITERS, specialize=True), pv)
+                gen_out, gen_s, gen_peak = aniso_steps(make_batched_return_map(
+                    model, max_iters=MP_ANISO_ITERS), pv, N_ANISO_GENERIC)
+                red_ok = settled(red_out)
+                gen_ok = settled(gen_out, N_ANISO_GENERIC)
+            red_out = tuple(t[:N_ANISO_GENERIC] for t in red_out)
+            done = red_ok[:N_ANISO_GENERIC] & gen_ok
+            worst = {k: float((a - b).abs()[done].max())
+                     for k, a, b in zip(("xi1", "sigma1", "xi2", "sigma2"),
+                                        red_out, gen_out, strict=True)}
+            plastic = [int((red_out[0][:, 6] > 0).sum()),
+                       int((red_out[2][:, 6] > red_out[0][:, 6]).sum())]
+            say("mp-aniso", f"{label} {form} float64 N={N_GENERIC} x 2 "
+                            f"steps, at most {MP_ANISO_ITERS} Newton "
+                            f"iterations, rotated material: reduced "
+                            f"{red_s * 1e3:.1f} ms = "
+                            f"{2 * N_GENERIC / red_s:.4g} updates/s (host "
+                            f"clock around synchronized work), peak "
+                            f"{red_peak / 2**30:.2f} GiB; generic 7-dof on "
+                            f"the first {N_ANISO_GENERIC} points "
+                            f"{gen_s * 1e3:.1f} ms = "
+                            f"{2 * N_ANISO_GENERIC / gen_s:.4g} updates/s, "
+                            f"peak "
+                            f"{gen_peak / 2**30:.2f} GiB; plastic points "
+                            f"per step {plastic}; points whose 7-dof "
+                            f"residual is above {ANISO_RESID_TOL:g} after "
+                            f"either step (their Newton at the cap): "
+                            f"reduced {int((~red_ok).sum())} of "
+                            f"{N_GENERIC}, generic {int((~gen_ok).sum())} "
+                            f"of {N_ANISO_GENERIC}; max |reduced - generic| "
+                            f"over the rest "
+                            f"{ {k: f'{v:.3e}' for k, v in worst.items()} } "
+                            f"(sigma atol {aniso_atol:.3g})")
+            if not (all(bool(torch.isfinite(t).all()) for t in red_out)
+                    and worst["sigma1"] <= aniso_atol
+                    and worst["sigma2"] <= aniso_atol
+                    and min(plastic) > 0
+                    and int((~red_ok).sum()) <= ANISO_MAX_AT_CAP):
+                raise RuntimeError(f"mp-aniso: the reduced and generic "
+                                   f"{label} {form} Newtons disagree")
+            del model, red_out, gen_out, red_ok, gen_ok, done
+            sync()
+            torch.cuda.empty_cache()
+
+    # Barlat (no reduction: the generic Newton) on the card and on the CPU
+    gb = g[:N_GRAD].contiguous()
+    bar_rows, bar_s = {}, {}
+    for where, n in (("card", N_GRAD), ("cpu", N_BARLAT_CPU)):
+        on = dev if where == "card" else torch.device("cpu")
+        bmodel = SmallRateElasticPlastic(parameters_from_numpy(
+            aniso_material({"barlat": dict(BARLAT)}, np.eye(3)), dtype=dt,
+            device=on))
+        gw = gb[:n].to(on)
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bar_rows[where] = make_batched_return_map(bmodel)(
+                torch.zeros((n, 7), dtype=dt, device=on), gw,
+                torch.zeros_like(gw), bmodel.parameters.values)
+        sync()
+        bar_s[where] = time.perf_counter() - t0
+    xb, sb = (t[:N_BARLAT_CPU].cpu() for t in bar_rows["card"])
+    xc, sc_cpu = bar_rows["cpu"]
+    bar_err = (float((sb - sc_cpu).abs().max()),
+               float((xb[:, 6] - xc[:, 6]).abs().max()))
+    bar_plastic = int((bar_rows["card"][0][:, 6] > 0).sum())
+    say("mp-aniso", f"barlat (Yld2004-18p, a = 8) generic 7-dof Newton, one "
+                    f"step from rest: N={N_GRAD} on the card "
+                    f"{bar_s['card']:.3f} s ({bar_plastic} plastic), "
+                    f"N={N_BARLAT_CPU} on the CPU {bar_s['cpu']:.3f} s; "
+                    f"max |card - CPU| over those: sigma {bar_err[0]:.3e} "
+                    f"(atol {aniso_atol:.3g}), alpha {bar_err[1]:.3e}")
+    if not (bar_err[0] <= aniso_atol and bar_plastic > 0
+            and bool(torch.isfinite(bar_rows["card"][1]).all())):
+        raise RuntimeError("mp-aniso: Barlat's card and CPU disagree")
+
+    # the reduced principal map's derivative in Y, total form, N_GRAD
+    # points, against a central difference of the re-solved map, over the
+    # points whose Newton converged at Y and at Y -+ h (a point at the
+    # cap has no derivative: its iterate jumps with Y)
+    pmodel = SmallElasticPlastic(Parameters(aniso_material(
+        {"hosford_principal": {"a": 100.0}}), dtype=dt))
+    pstep = make_batched_return_map(pmodel, max_iters=MP_ANISO_ITERS,
+                                    specialize=True)
+    pv = pmodel.parameters.values
+    pfull = vmap(pmodel.residual_fun, in_dims=(0, 0, None, 0, 0))
+    w = torch.randn((N_GRAD, 3, 3), generator=gen, device=dev, dtype=dt)
+    zg, xg0 = torch.zeros_like(gb), aos_zero(N_GRAD, dt)
+
+    def at_Y(Y):
+        return {**pv, "plastic": {**pv["plastic"], "flow stress": {
+            **pv["plastic"]["flow stress"], "initial yield": {"Y": Y}}}}
+
+    Y0 = float(pv["plastic"]["flow stress"]["initial yield"]["Y"])
+    sig_h, keep = [], torch.ones(N_GRAD, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for Y in (Y0 - ANISO_GRAD_H, Y0 + ANISO_GRAD_H, Y0):
+            values = at_Y(torch.tensor(Y, dtype=dt, device=dev))
+            xi_h, s_h = pstep(xg0, gb, zg, values)
+            keep &= pfull(xi_h, xg0, values, aniso_fields(gb),
+                          aniso_fields(zg)).norm(dim=-1) <= ANISO_RESID_TOL
+            sig_h.append(s_h)
+    wk = w * keep[:, None, None]
+    fd = float((wk * (sig_h[1] - sig_h[0])).sum()) / (2.0 * ANISO_GRAD_H)
+    Yt = torch.tensor(Y0, dtype=dt, device=dev, requires_grad=True)
+    dY = float(torch.autograd.grad(
+        (wk * pstep(xg0, gb, zg, at_Y(Yt))[1]).sum(), Yt)[0])
+    grad_rel = abs(dY - fd) / abs(fd)
+    say("mp-aniso", f"principal total form, N={N_GRAD} ({int((~keep).sum())} "
+                    f"points left out: their Newton missed the tolerance at "
+                    f"Y or Y -+ h): d/dY of a weighted sum of sigma by the "
+                    f"implicit-function rule {dY!r}, central difference at "
+                    f"h = {ANISO_GRAD_H:g} {fd!r}: rel diff {grad_rel:.3e} "
+                    f"(bound {ANISO_GRAD_RTOL:g})")
+    if not (grad_rel <= ANISO_GRAD_RTOL
+            and int((~keep).sum()) <= ANISO_MAX_AT_CAP):
+        raise RuntimeError("mp-aniso: the gradient misses its central "
+                           "difference")
+    del g, z, g2, x0, gb, zg, xg0, w, wk, sig_h, bar_rows, pmodel, pstep
+    sync()
+    torch.cuda.empty_cache()
+
+    # deck b (uniaxial stress, 100 steps) with Hill and with principal
+    # Hosford through the primal command (the Newton replayed from CUDA
+    # graphs) against the port on the CPU
+    an_dir = work / "mp_aniso"
+    shutil.rmtree(an_dir, ignore_errors=True)
+    an_dir.mkdir(parents=True)
+    for label, es in (("hill", {"hill": {k: {"value": v}
+                                         for k, v in HILL.items()}}),
+                      ("hosford_principal",
+                       {"hosford_principal": {"a": {"value": 8.0}}})):
+        deck = mp_deck(an_dir, "b", effective_stress=es)
+        out = an_dir / f"primal_b_{label}"
+        sync()
+        t0 = time.perf_counter()
+        mps.run_primal_mp(deck, out)
+        sync()
+        card_s = time.perf_counter() - t0
+        cpu_problem = build_mp_problem(deck, "primal",
+                                       device=torch.device("cpu"))
+        t0 = time.perf_counter()
+        c_cpu, xi_cpu, log_cpu, _J = mps.run_primal_pass(
+            cpu_problem.model, cpu_problem.F[..., :ANISO_CPU_STEPS + 1],
+            cpu_problem.resolved["solver"]["newton"])
+        cpu_s = time.perf_counter() - t0
+        cauchy, xi = np.load(out / "cauchy.npy"), np.load(out / "xi.npy")
+        log = json.loads((out / "solver.json").read_text())
+        # a step reads only the steps before it: the card's first
+        # ANISO_CPU_STEPS steps against the CPU's drive of those alone
+        first = slice(0, ANISO_CPU_STEPS + 1)
+        cauchy, xi = cauchy[..., first], xi[first]
+        errs = [float(np.abs(a - np.asarray(b)).max() / np.abs(b).max())
+                for a, b in ((cauchy, c_cpu), (xi, xi_cpu))]
+        iters = [e["iters"] for e in log]
+        say("mp-aniso", f"deck b ({MP_STEPS['b']} steps) with {label} "
+                        f"through the primal command: card {card_s:.3f} s "
+                        f"(Newton iterations {sum(iters)}); its first "
+                        f"{ANISO_CPU_STEPS} steps against the CPU's "
+                        f"({cpu_s:.3f} s): max rel |card - CPU| cauchy "
+                        f"{errs[0]:.3e}, xi {errs[1]:.3e} (bound "
+                        f"{MP_CPU_RTOL:g}); alpha at step "
+                        f"{ANISO_CPU_STEPS} {float(xi[-1, 6]):.6e}")
+        if not (max(errs) <= MP_CPU_RTOL and float(xi[-1, 6]) > 0.0
+                and iters[:ANISO_CPU_STEPS]
+                == [e["iters"] for e in log_cpu]):
+            raise RuntimeError(f"mp-aniso: deck b with {label} differs from "
+                               f"the CPU")
+    sync()
+    an_counts = read_counts()
+    say("mp-aniso", f"launches {an_counts}")
+    if any(an_counts.values()):
+        raise RuntimeError(f"mp-aniso: a hand-written kernel launched: "
+                           f"{an_counts}")
+    lap("mp-aniso")
+
+    # ---------------- fe-principal (this slice's main path) ----------------
+    # examples/notch_hosford_principal.yaml (principal Hosford, a = 100,
+    # the reduced 4-dof Newton in the trial eigenbasis on the point-batch
+    # block): the deck as written (480 tets, 4 steps, Newton cap 15, the
+    # default direct solve) through the primal command against cmad_tpu's
+    # ||U||, and the notch calibration's gradient at 480 tets over the
+    # deck's first FE_PRINCIPAL_GRAD_STEPS steps (the records' solver; the
+    # depth cut that holds the call's time) against cmad_tpu's; Hill on the 480-tet notch, card
+    # against CPU; then the deck's first step at 47,628 tets with the
+    # records' solver and Newton cap 50 against cmad_tpu's ||U||, with its
+    # local iterations, one assembly's host and device time, the repair
+    # kernels' launches, and the assembly repeated bit for bit
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmad_tpu_torch.io.exodus import read_results
+
+    pr_dir = work / "fe_principal"
+    shutil.rmtree(pr_dir, ignore_errors=True)
+    ex = pr_dir / "examples"
+    (ex / "meshes").mkdir(parents=True)
+    shutil.copy(MESHES / FE_SMALL_MESH, ex / "meshes" / FE_SMALL_MESH)
+    here = Path.cwd()
+    os.chdir(ex)
+    try:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        fs.run_primal_fe(copy.deepcopy(NOTCH_PRINCIPAL_DECK))
+        sync()
+        small_s = time.perf_counter() - t0
+        small_counts = read_counts()
+        exo = read_results(ex / "results_principal" / "notch_primal.exo")
+    finally:
+        os.chdir(here)
+    U_small = np.stack([np.stack([exo.nodal[f"u_{c}"][k] for c in "xyz"],
+                                 axis=1) for k in range(len(exo.times))])
+    small_norms = [float(np.linalg.norm(u)) for u in U_small[1:]]
+    small_rel = max(abs(a - b) / b for a, b in zip(
+        small_norms, FE_PRINCIPAL_SMALL_REF_U_NORMS, strict=True))
+    say("fe-principal", f"notch_hosford_principal.yaml as written (480 "
+                        f"tets, 4 steps, cap 15, direct) through the primal "
+                        f"command: {small_s:.3f} s ({small_s / 4:.3f} s per "
+                        f"step); ||U|| per step {small_norms} against "
+                        f"cmad_tpu {list(FE_PRINCIPAL_SMALL_REF_U_NORMS)}: "
+                        f"max rel err {small_rel:.3e} (bound "
+                        f"{FE_REF_RTOL:g}); launches {small_counts}")
+    if not small_rel <= FE_REF_RTOL:
+        raise RuntimeError("fe-principal: the deck misses cmad_tpu's answer")
+    # the gradient over the deck's first steps (its forward sweep drives
+    # them again at Y = GRAD_Y), against the command's U after them
+    truth_p = work / "u_truth_principal_480.npy"
+    np.save(truth_p, U_small[:FE_PRINCIPAL_GRAD_STEPS + 1])
+    pbundle = build_fe_problem_from_deck(with_steps(grad_deck(
+        FE_SMALL_MESH, FE_RECORDS, truth_p,
+        effective_stress="hosford_principal"), FE_PRINCIPAL_GRAD_STEPS))
+    p0, s0, ts, vg = build_fe_stepped_vg(pbundle)
+    sync()
+    t0 = time.perf_counter()
+    J_p, g_p = vg(p0, s0, ts)
+    sync()
+    pgrad_s = time.perf_counter() - t0
+    prel = (abs(J_p - FE_PRINCIPAL_GRAD_REF_J) / abs(FE_PRINCIPAL_GRAD_REF_J),
+            abs(float(g_p[0]) - FE_PRINCIPAL_GRAD_REF_DJ_DC)
+            / abs(FE_PRINCIPAL_GRAD_REF_DJ_DC))
+    say("fe-principal", f"480 tets, the gradient over the first "
+                        f"{FE_PRINCIPAL_GRAD_STEPS} steps at Y "
+                        f"{GRAD_Y} (log transform "
+                        f"about {GRAD_Y_TRUTH}), the records' solver: J "
+                        f"{J_p!r}, dJ/dc {float(g_p[0])!r} in "
+                        f"{pgrad_s:.3f} s; cmad_tpu (CPU f64, direct) J "
+                        f"{FE_PRINCIPAL_GRAD_REF_J!r}, dJ/dc "
+                        f"{FE_PRINCIPAL_GRAD_REF_DJ_DC!r}: rel diff J "
+                        f"{prel[0]:.3e} (bound {FE_GRAD_J_RTOL:g}), dJ/dc "
+                        f"{prel[1]:.3e} (bound {FE_GRAD_G_RTOL:g})")
+    if not (prel[0] <= FE_GRAD_J_RTOL and prel[1] <= FE_GRAD_G_RTOL):
+        raise RuntimeError("fe-principal: the gradient misses cmad_tpu's")
+    del pbundle, vg
+
+    hill = with_steps(notch_deck(FE_SMALL_MESH, FE_CG_TIGHT, "hill"), 1,
+                      2.0)
+    hill["residuals"]["global residual"].update(
+        {"nonlinear absolute tol": GRAD_SMALL_TOL,
+         "nonlinear relative tol": GRAD_SMALL_TOL})
+    hb = build_fe_problem_from_deck(hill)
+    if not hb.fe_problem.evaluators_by_block["block_1"][
+            "local_solve"].residual.__module__.endswith("hill_return"):
+        raise RuntimeError("fe-principal: Hill's block does not run the "
+                           "reduced Hill Newton")
+    t0 = time.perf_counter()
+    gpu_hill = fe_primal_drive(hb)[0]
+    hill_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_hill, cpu_hill_log = fe_primal_drive(build_fe_problem_from_deck(
+        {**copy.deepcopy(hill), "linear solver": dict(FE_DIRECT)},
+        device="cpu"))
+    hill_cpu_s = time.perf_counter() - t0
+    U_g, U_c = np.stack(gpu_hill.U_history), np.stack(cpu_hill.U_history)
+    hill_rel = float(np.abs(U_g - U_c).max() / np.abs(U_c).max())
+    hill_alpha = float(np.abs(gpu_hill.xi_at(1, "block_1")[..., 6]).max())
+    say("fe-principal", f"Hill on 480 tets x 1 step (t = 2), Newton "
+                        f"tol {GRAD_SMALL_TOL:g}: card (cg + two_level "
+                        f"1e-10) "
+                        f"{hill_card_s:.3f} s vs CPU (direct) "
+                        f"{hill_cpu_s:.3f} s: max|U_gpu - U_cpu| / "
+                        f"max|U_cpu| {hill_rel:.3e} (bound "
+                        f"{FE_HILL_BOUND:g}); max alpha {hill_alpha:.6e}; "
+                        f"||U|| per step "
+                        f"{[float(np.linalg.norm(u)) for u in U_g[1:]]}")
+    if not (hill_rel <= FE_HILL_BOUND and hill_alpha > 0.0
+            and fe_converged(cpu_hill_log, nonlinear_settings(hb))):
+        raise RuntimeError("fe-principal: Hill's card and CPU disagree")
+    del hb, gpu_hill, cpu_hill
+
+    pdeck = with_steps(notch_deck(FE_MESH, FE_RECORDS, "hosford_principal"),
+                       1)
+    t0 = time.perf_counter()
+    bundle = build_fe_problem_from_deck(pdeck)
+    fe = bundle.fe_problem
+    say("fe-principal", f"{FE_MESH}: {fe.mesh.connectivity.shape[0]} tets, "
+                        f"{fe.dof_map.num_total_dofs} dofs, the point-batch "
+                        f"block (reduced principal Newton); problem built "
+                        f"in {time.perf_counter() - t0:.2f} s (host)")
+    local = fe.evaluators_by_block["block_1"]["local_solve"].newton
+    local.log = []
+    t0 = time.perf_counter()
+    state, _log, stats, pr_counts, peak = fe_drive("fe-principal", bundle,
+                                                   k1_per_assembly=0)
+    step_s = time.perf_counter() - t0
+    solves, local.log = local.log, None
+    mean = sum(float(m[1]) for m in solves) / sum(m[2] for m in solves)
+    norm = float(np.linalg.norm(state.U_at(1)))
+    alpha = float(np.abs(state.xi_at(1, "block_1")[..., 6]).max())
+    rel = tuple(abs(got - ref) / ref for got, ref in (
+        (norm, FE_PRINCIPAL_REF_U_NORM), (alpha, FE_PRINCIPAL_REF_ALPHA_MAX)))
+    say("fe-principal", f"step 1 in {step_s:.3f} s, peak memory "
+                        f"{peak / 2**30:.3f} GiB; local Newton (one per "
+                        f"assembly, {len(solves)}): most iterations of a "
+                        f"point {max(m[0] for m in solves)}, mean "
+                        f"{mean:.4f} per point per assembly, slowest "
+                        f"point's iterations per assembly "
+                        f"{[m[0] for m in solves]}; ||U|| {norm!r}, max "
+                        f"|alpha| {alpha!r}; against cmad_tpu (CPU f64, "
+                        f"direct, Newton cap 50) "
+                        f"{FE_PRINCIPAL_REF_U_NORM!r}, "
+                        f"{FE_PRINCIPAL_REF_ALPHA_MAX!r}: rel err "
+                        f"{rel[0]:.3e}, {rel[1]:.3e} (bound "
+                        f"{FE_REF_RTOL:g}); launches {pr_counts}")
+    if not max(rel) <= FE_REF_RTOL:
+        raise RuntimeError("fe-principal: the step misses cmad_tpu's answer")
+    ka, params = fe.kernel_arrays, params_by_block_from_models(fe)
+    t = float(state.t_history[-1])
+    U_prev = torch.as_tensor(state.U_at(0), dtype=fe.dtype, device=dev)
+    U = torch.as_tensor(state.U_at(1), dtype=fe.dtype, device=dev)
+    xi_prev = {"block_1": torch.as_tensor(state.xi_at(0, "block_1"),
+                                          dtype=fe.dtype, device=dev)}
+
+    def assemble_at_converged():
+        K, R, _xi = assemble_global(fe, ka, params, U, U_prev, t,
+                                    xi_prev_by_block=xi_prev)
+        K_data, K_ii = _embedded_bc_enforce(K, ka.prescribed_indices)
+        return K_data, K_ii, R
+
+    with torch.no_grad():
+        host, outs = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            outs.append(assemble_at_converged())
+            sync()
+            host.append(time.perf_counter() - t0)
+        local.log = []
+        # the device's activity only, as in fe-hosford
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            assemble_at_converged()
+            sync()
+        asm_iters, local.log = local.log[0][0], None
+    same = all(torch.equal(a, b) for a, b in zip(*outs, strict=True))
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    asm_dev = sum(ev.time_range.elapsed_us() for ev in kernels) * 1e-3
+    asm_host = min(host) * 1e3
+    say("fe-principal", f"one point-batch assembly at the converged U "
+                        f"({asm_iters} local iterations of the slowest "
+                        f"point): host {asm_host:.2f} ms (best of 2, "
+                        f"{[round(h * 1e3, 2) for h in host]}), device "
+                        f"{asm_dev:.2f} ms in {len(kernels)} kernels "
+                        f"(traced), so the device is busy "
+                        f"{asm_dev / asm_host:.1%} of it; the two "
+                        f"assemblies' R and K bit for bit: {same}")
+    if not same:
+        raise RuntimeError("fe-principal: the repeated assembly differs")
+    del bundle, fe, state, U, U_prev, xi_prev, outs, prof
+    sync()
+    torch.cuda.empty_cache()
+    lap("fe-principal")
+
     # ---------------- fe-notch-large ----------------
     t0 = time.perf_counter()
     bundle = build_fe_problem_from_deck(notch_deck(FE_LARGE_MESH,
@@ -4141,6 +4689,8 @@ def main() -> int:
                     + egrad_counts.get(k, 0) for k in main_path}
     # the loaded path (fe-loads' primal and gradient at 47,628 tets)
     loads_path = {k: loads_counts.get(k, 0) for k in main_path}
+    # the principal-Hosford path (fe-principal's step at 47,628 tets)
+    principal_path = {k: pr_counts.get(k, 0) for k in main_path}
     say("launches", f"main paths (fe-grad + fe-hessian; history-drive; "
                     f"mp-batched; roofline): {main_path}; the loaded path "
                     f"(fe-loads' primal + gradient) {loads_path}; fe-grad "
@@ -4150,7 +4700,8 @@ def main() -> int:
                     f"{launches['j2_soa_step']} times; the Hosford path "
                     f"(fe-hosford's primal + gradient) {hosford_path}; the "
                     f"elastic path (fe-elastic's primals + fe-elastic-"
-                    f"grad's gradient) {elastic_path}")
+                    f"grad's gradient) {elastic_path}; the principal-"
+                    f"Hosford path (fe-principal's step) {principal_path}")
     if not all(v > 0 for v in main_path.values()):
         raise RuntimeError(f"launches: a kernel never ran: {main_path}")
 
@@ -4228,7 +4779,9 @@ def main() -> int:
          "hosford_launches": hosford_path[kname],
          "elastic_launches": elastic_path[kname],
          "loads_launches": loads_path[kname],
-         "mp_launches": mp_counts.get(kname, 0), "max_abs_err": err,
+         "mp_launches": mp_counts.get(kname, 0),
+         "principal_launches": principal_path[kname],
+         "mp_aniso_launches": an_counts.get(kname, 0), "max_abs_err": err,
          "ms": ms,
          "plain_ms": plain_t, "bound_ms": bounds[kname][0],
          "bound_by": bounds[kname][1], "library_ms": lib, "cold_ms": cold,

@@ -159,22 +159,35 @@ class GlobalResidual(ABC):
         what ``point_fields(g, aux) -> (U, U_prev)`` reads (the generic
         block: the element's coefficients, with the previous ones and
         the shape functions as ``aux``). In strain space a model that
-        admits it gets the reduced 4-dof Hosford Newton
-        (``ops/hosford_return.py``); everything else, and every model
-        when ``print_local_convergence`` asks for each iteration, the
-        generic implicit-function Newton on ``model.residual_fun``, as
-        the JAX package's menu does (its radial-return, principal-Hosford
-        and Hill arms: the J2 block takes J2+Voce first; the others come
-        with item 21)."""
+        admits one gets a reduced Newton, in the JAX package's order: the
+        diagonal Hosford one (``ops/hosford_return.py``), the principal
+        Hosford one (``ops/principal_return.py``), the Hill one
+        (``ops/hill_return.py``); the J2 block takes J2+Voce before this
+        menu. Everything else, and every model when
+        ``print_local_convergence`` asks for each iteration, gets the
+        generic implicit-function Newton on ``model.residual_fun``."""
+        from cmad_tpu_torch.ops.hill_return import (
+            hill_reducible,
+            make_hill_strain_solve,
+        )
         from cmad_tpu_torch.ops.hosford_return import (
             hosford_reducible,
             make_hosford_strain_solve,
         )
+        from cmad_tpu_torch.ops.principal_return import (
+            make_principal_hosford_strain_solve,
+            principal_hosford_reducible,
+        )
 
         strain = point_fields is None
-        if strain and hosford_reducible(model) \
-                and not print_local_convergence:
-            return make_hosford_strain_solve(model, **local_newton_settings)
+        if strain and not print_local_convergence:
+            for reducible, make in (
+                    (hosford_reducible, make_hosford_strain_solve),
+                    (principal_hosford_reducible,
+                     make_principal_hosford_strain_solve),
+                    (hill_reducible, make_hill_strain_solve)):
+                if reducible(model):
+                    return make(model, **local_newton_settings)
         return LocalSolve(
             _model_residual(model, strain_fields if strain else point_fields),
             _identity, _keep_state,

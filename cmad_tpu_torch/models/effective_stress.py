@@ -1,11 +1,11 @@
 """Effective-stress (yield) functions on 3x3 Cauchy tensors.
 
 Port of ``cmad_tpu/models/effective_stress.py`` (parity: reference
-``cmad/models/effective_stress.py``): J2 and the diagonal Hosford form.
-The other anisotropic forms (Hill, Barlat, principal Hosford) and the
-hybrid and scaled forms come with their return maps in a later slice
-(ROADMAP queue 1, item 21); naming one of them raises
-``NotImplementedError``.
+``cmad/models/effective_stress.py``): J2, Hill-1948, Barlat
+Yld2004-18p, the diagonal Hosford form and the frame-invariant
+(principal) Hosford form, batched over leading dimensions. The hybrid
+(neural-network) and scaled forms of the JAX package are not ported;
+naming one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,20 +15,26 @@ from typing import Any
 import torch
 
 from cmad_tpu_torch.typing import Tensor
-
-_LATER = ("hill", "barlat", "hosford_principal")
+from cmad_tpu_torch.util.eigen_decomposition import compute_eigenvalues
+from cmad_tpu_torch.verification.functions import (
+    barlat_yield_torch,
+    hill_yield_torch,
+)
 
 
 def conventional_effective_stress_fun(name: str) -> Callable[..., Tensor]:
-    if name == "J2":
-        return J2_effective_stress
-    if name == "hosford":
-        return hosford_effective_stress
-    if name in _LATER:
+    table = {
+        "J2": J2_effective_stress,
+        "hill": hill_effective_stress,
+        "barlat": barlat_effective_stress,
+        "hosford": hosford_effective_stress,
+        "hosford_principal": hosford_principal_effective_stress,
+    }
+    try:
+        return table[name]
+    except KeyError as e:
         raise NotImplementedError(
-            f"effective stress {name!r} is not ported yet: it comes with "
-            f"ROADMAP queue 1, item 21 (the anisotropic return maps)")
-    raise NotImplementedError(f"unknown effective stress type: {name!r}")
+            f"unknown effective stress type: {name!r}") from e
 
 
 def J2_effective_stress(
@@ -38,6 +44,34 @@ def J2_effective_stress(
     eye = torch.eye(3, dtype=cauchy.dtype, device=cauchy.device)
     s = cauchy - tr[..., None, None] * eye
     return torch.sqrt(1.5 * torch.sum(s * s, dim=(-2, -1)))
+
+
+def hill_effective_stress(cauchy: Tensor, params: dict[str, Any]) -> Tensor:
+    """Hill-1948 quadratic anisotropic yield, on the full tensor (both
+    mirror entries of each shear, so its gradient is symmetric):
+    ``verification/functions.hill_yield_torch``."""
+    c = params["effective stress"]["hill"]
+    return hill_yield_torch(cauchy, [c[k] for k in "FGHLMN"])
+
+
+_BARLAT_KEYS = ("sp_12", "sp_13", "sp_21", "sp_23", "sp_31", "sp_32",
+                "sp_44", "sp_55", "sp_66",
+                "dp_12", "dp_13", "dp_21", "dp_23", "dp_31", "dp_32",
+                "dp_44", "dp_55", "dp_66", "a")
+
+
+def flatten_barlat_params(params: dict[str, Any]) -> Tensor:
+    """Pack the 18 Yld2004-18p linear-transform coefficients and the
+    exponent (19,), out of place."""
+    c = params["effective stress"]["barlat"]
+    return torch.stack([torch.as_tensor(c[k]) for k in _BARLAT_KEYS])
+
+
+def barlat_effective_stress(cauchy: Tensor, params: dict[str, Any]) -> Tensor:
+    """Barlat Yld2004-18p (two linear transforms and the eigenvalue
+    form, ``verification/functions.barlat_yield_torch``)."""
+    packed = flatten_barlat_params(params).to(cauchy)
+    return barlat_yield_torch(cauchy, packed)
 
 
 def hosford_effective_stress(cauchy: Tensor, params: dict[str, Any]) -> Tensor:
@@ -72,3 +106,22 @@ def _hosford_phi_of_three(v0: Tensor, v1: Tensor, v2: Tensor,
     safe_base = torch.where(m > 0.0, base, torch.ones_like(base))
     phi = safe_m * safe_base ** (1.0 / a)
     return torch.where(m > 0.0, phi, torch.zeros_like(phi))
+
+
+def hosford_phi_of_principal(s: Tensor, a) -> Tensor:
+    """Hosford effective stress of a ``(..., 3)`` vector of principal
+    stresses (any order)."""
+    return _hosford_phi_of_three(s[..., 0], s[..., 1], s[..., 2], a)
+
+
+def hosford_principal_effective_stress(
+        cauchy: Tensor, params: dict[str, Any]) -> Tensor:
+    """Hosford 1972 on the principal stresses: the frame-invariant form,
+    valid for any stress state (the reference's Hosford reads only the
+    diagonal). The eigenvalues come from the guarded closed-form Cardano
+    solution (``util/eigen_decomposition.py``), so the gradient (the
+    yield normal) stays finite at repeated principal stresses; on a
+    diagonal stress the value is the diagonal form's."""
+    a = params["effective stress"]["hosford_principal"]["a"]
+    sym = 0.5 * (cauchy + cauchy.transpose(-1, -2))
+    return hosford_phi_of_principal(compute_eigenvalues(sym), a)

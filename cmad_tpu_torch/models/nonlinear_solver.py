@@ -305,9 +305,16 @@ class LocalSolve:
     coefficients (nd, 3), for the generic per-point block. ``aux`` are
     ``n_aux`` further per-point inputs the tangent is not taken in (the
     previous coefficients and the shape functions). ``reduce(xi_prev)``
-    picks the unknowns' previous values out of one point's state, which
-    also seed the Newton, and ``expand(x, xi_prev, params, g, *aux)``
-    rebuilds the state. Calls are batched: ``xi_prev`` (B, nxi), ``g``
+    picks what the residual reads of one point's previous state as
+    ``x_prev``: the unknowns' previous values, which also seed the Newton,
+    or, with ``seed``, anything (the reduced principal and Hill solves
+    take the whole state, since their trial state depends on all of it),
+    and ``seed(x_prev, params, g, *aux)`` then gives the Newton's start.
+    ``expand(x, xi_prev, params, g, *aux)`` rebuilds the state. A trial
+    state the residual needs is computed inside it from ``x_prev``,
+    ``params`` and ``g``: :meth:`tangent` differentiates the residual in
+    ``g`` alone, so a trial passed in as ``aux`` would lose its part of
+    ``dx/dg``. Calls are batched: ``xi_prev`` (B, nxi), ``g``
     (B, ...), each ``aux`` (B, ...) and ``params`` shared by every
     point. The parameters, the previous state, ``g`` and ``aux`` are each
     inputs of the implicit solve (:class:`_ImplicitSolve`), never
@@ -320,25 +327,34 @@ class LocalSolve:
     def __init__(self, residual, reduce, expand, max_iters: int = 10,
                  abs_tol: float | None = None, rel_tol: float | None = None,
                  line_search_settings: dict[str, Any] | None = None,
-                 print_local_convergence: bool = False, n_aux: int = 0):
+                 print_local_convergence: bool = False, n_aux: int = 0,
+                 seed=None):
         self.residual, self.reduce, self.expand = residual, reduce, expand
         dims = (0, None, 0, *(0,) * n_aux)
         self.newton = _Newton(residual, dims, max_iters, abs_tol,
                               rel_tol, line_search_settings,
                               print_local_convergence)
         self._reduce_b = vmap(reduce)
+        self._seed_b = None if seed is None else vmap(seed, in_dims=dims)
         self._expand_b = vmap(expand, in_dims=(0, *dims))
         self._dr_dg_b = vmap(jacfwd(residual, argnums=3),
                              in_dims=(0, *dims))
 
     def unknowns(self, xi_prev: Tensor, params, g: Tensor, *aux
                  ) -> tuple[Tensor, Tensor]:
-        """``(x*, x_prev)``, each (B, n): the converged unknowns and
-        their previous values."""
+        """``(x*, x_prev)``: the converged unknowns (B, n) and what
+        ``reduce`` read of the previous state (their previous values, or
+        the whole state when the solve has a ``seed``)."""
         x_prev = self._reduce_b(xi_prev)
         spec = _Args((x_prev, params, g, *aux))
-        return _ImplicitSolve.apply(x_prev, self.newton, spec,
-                                    *spec.tensors), x_prev
+        return _ImplicitSolve.apply(self._start(x_prev, params, g, *aux),
+                                    self.newton, spec, *spec.tensors), x_prev
+
+    def _start(self, x_prev: Tensor, params, g: Tensor, *aux) -> Tensor:
+        if self._seed_b is None:
+            return x_prev
+        with torch.no_grad():
+            return self._seed_b(x_prev, params, g, *aux)
 
     def state(self, x: Tensor, xi_prev: Tensor, params, g: Tensor, *aux
               ) -> Tensor:
@@ -355,7 +371,8 @@ class LocalSolve:
         solve, primal only."""
         x_prev = self._reduce_b(xi_prev)
         with torch.no_grad():
-            return self.newton(x_prev, (x_prev, params, g, *aux))[1]
+            return self.newton(self._start(x_prev, params, g, *aux),
+                               (x_prev, params, g, *aux))[1]
 
     def tangent(self, x: Tensor, x_prev: Tensor, params, g: Tensor,
                 *aux) -> Tensor:

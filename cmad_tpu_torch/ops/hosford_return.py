@@ -194,11 +194,23 @@ def make_hosford_local_solve(model, max_iters: int = 10,
     gradients, ``params`` shared): the reduced system solved and the
     7-dof state rebuilt (requires ``hosford_reducible(model)``). The
     guess is ignored: the reduced solve seeds from the previous state."""
-    kind = hosford_kind(model)
-    solve = make_hosford_strain_solve(
-        model, max_iters=max_iters, abs_tol=abs_tol, rel_tol=rel_tol,
-        line_search_settings=line_search_settings)
+    return points_local_solve(
+        hosford_kind(model), make_hosford_strain_solve(
+            model, max_iters=max_iters, abs_tol=abs_tol, rel_tol=rel_tol,
+            line_search_settings=line_search_settings))
 
+
+def whole_state(xi_prev: Tensor) -> Tensor:
+    """``reduce`` of the reduced solves whose residual reads the whole
+    previous state (the principal-Hosford and Hill ones)."""
+    return xi_prev
+
+
+def points_local_solve(kind: str, solve: LocalSolve):
+    """``local_solve(xi_guess, xi_prev, params, U, U_prev)`` of a reduced
+    strain-space ``solve`` for a model of ``kind``: the strain rows taken
+    from the displacement gradients and the guess ignored (a reduced
+    solve seeds itself)."""
     def local_solve(xi_guess, xi_prev, params, U, U_prev):
         del xi_guess
         return solve(xi_prev, params, strain_rows(kind, U, U_prev))

@@ -26,6 +26,10 @@ from cmad_tpu_torch.ops.cuda_radial_return import (
     soa_history_cuda,
     soa_step_scalars_cuda,
 )
+from cmad_tpu_torch.ops.hill_return import (
+    hill_reducible,
+    make_hill_local_solve,
+)
 from cmad_tpu_torch.ops.hosford_return import (
     hosford_reducible,
     make_hosford_local_solve,
@@ -36,17 +40,24 @@ from cmad_tpu_torch.ops.j2_radial_return import (
     make_j2_radial_return_total,
     soa_step_scalars,
 )
+from cmad_tpu_torch.ops.principal_return import (
+    make_principal_hosford_local_solve,
+    principal_hosford_reducible,
+)
 from cmad_tpu_torch.typing import Tensor
 
 
-def elastic_plastic_kind(model, effective_stress: str) -> str | None:
+def elastic_plastic_kind(model, effective_stress: str,
+                         any_rotation: bool = False) -> str | None:
     """``"rate"`` / ``"total"`` when ``model`` is a small-strain
     elastic-plastic model with the default constitutive funs, FULL_3D,
     an initial yield, the effective stress ``effective_stress`` alone and
-    the identity material rotation; ``None`` otherwise. The rotation must
-    be the identity when a map is built: specialization keys on
-    build-time structure. Reads the rotation to the host once, here,
-    never per call."""
+    the identity material rotation (any rotation with ``any_rotation``:
+    the principal-Hosford and Hill reductions run in the material frame);
+    ``None`` otherwise. Without ``any_rotation`` the rotation must be the
+    identity when a map is built: specialization keys on build-time
+    structure. Reads the rotation to the host once, here, never per
+    call."""
     from cmad_tpu_torch.models.small_elastic_plastic import (
         SmallElasticPlastic,
     )
@@ -70,6 +81,8 @@ def elastic_plastic_kind(model, effective_stress: str) -> str | None:
             return None
         if "initial yield" not in plastic["flow stress"]:
             return None
+        if any_rotation:
+            return kind
         R = vals["rotation matrix"].detach().cpu().numpy()
         return kind if np.allclose(R, np.eye(3)) else None
     except (KeyError, TypeError, AttributeError):
@@ -142,16 +155,22 @@ def make_batched_return_map(model, max_iters: int = 10,
     differentiable in ``params`` and the inputs. With
     ``specialize=True``, models recognized by :func:`j2_voce_specializable`
     dispatch to the analytic radial return (the CUDA kernels on CUDA
-    tensors; forward-only) instead, and diagonal-Hosford models to the
-    reduced 4-dof Newton (``ops/hosford_return.py``), as differentiable
-    as the generic map. The principal-Hosford and Hill reductions come
-    with their effective stresses (ROADMAP queue 1, item 21).
+    tensors; forward-only) instead, and, as differentiable as the generic
+    map, diagonal-Hosford models to the reduced 4-dof Newton
+    (``ops/hosford_return.py``), principal-Hosford models to the 4-dof
+    Newton in the trial eigenbasis (``ops/principal_return.py``) and Hill
+    models to the scalar Newton (``ops/hill_return.py``), in that order.
     """
     if specialize and j2_voce_specializable(model):
         return make_j2_radial_return_for(model)
+    settings = {"max_iters": max_iters, "abs_tol": abs_tol,
+                "rel_tol": rel_tol}
     if specialize and hosford_reducible(model):
-        solve = make_hosford_local_solve(model, max_iters=max_iters,
-                                         abs_tol=abs_tol, rel_tol=rel_tol)
+        solve = make_hosford_local_solve(model, **settings)
+    elif specialize and principal_hosford_reducible(model):
+        solve = make_principal_hosford_local_solve(model, **settings)
+    elif specialize and hill_reducible(model):
+        solve = make_hill_local_solve(model, **settings)
     else:
         solve = make_newton_solve(model.residual_fun, max_iters=max_iters,
                                   abs_tol=abs_tol, rel_tol=rel_tol,

@@ -409,3 +409,81 @@ def test_chip_smoke_runs_notch_hosford_yaml_as_written():
     deck = yaml.safe_load((REPO / "examples" / "notch_hosford.yaml")
                           .read_text())
     assert chip["NOTCH_HOSFORD_DECK"] == deck
+
+
+def test_chip_smoke_runs_notch_hosford_principal_yaml_as_written():
+    """The principal-Hosford deck, which ``chip_smoke.py`` runs as a dict
+    in its fe-principal phase, is the file key for key."""
+    chip = runpy.run_path(str(REPO / "chip_smoke.py"))
+    deck = yaml.safe_load((REPO / "examples" / "notch_hosford_principal.yaml")
+                          .read_text())
+    assert chip["NOTCH_PRINCIPAL_DECK"] == deck
+
+
+# ``tests/cli/test_mp_roundtrips.py``'s anisotropic yield sections
+_MP_YIELDS = {
+    "hill": {"hill": {k: {"value": v} for k, v in (
+        ("F", 0.45), ("G", 0.55), ("H", 0.5),
+        ("L", 1.4), ("M", 1.6), ("N", 1.5))}},
+    "hosford_principal": {"hosford_principal": {"a": {"value": 8.0}}},
+}
+
+
+@pytest.mark.parametrize("yield_name", sorted(_MP_YIELDS))
+def test_mp_primal_with_an_anisotropic_yield_matches_cmad_tpu(
+        yield_name, tmp_path):
+    """``tests/cli/test_mp_roundtrips.py``'s FULL_3D material-point ramp
+    through yield with Hill or principal Hosford: ``python -m
+    cmad_tpu_torch primal`` against cmad_tpu's ``primal``, every output
+    array to 1e-12 of its scale and the same Newton iterations."""
+    from cmad_tpu.cli.main import main as jax_main
+
+    from tests.support.torch_mp import params_section
+
+    num_steps = 8
+    eps = np.r_[0.0, np.linspace(0.0008, 0.012, num_steps)]
+    F = np.repeat(np.eye(3)[:, :, None], num_steps + 1, axis=2)
+    F[0, 0, :] += eps
+    F[1, 1, :] -= 0.45 * eps
+    F[2, 2, :] -= 0.45 * eps
+    np.save(tmp_path / "F.npy", F)
+    params = params_section()
+    del params["rotation matrix"]
+    params["plastic"]["effective stress"] = _MP_YIELDS[yield_name]
+    outs = {}
+    for side in ("jax", "port"):
+        deck = {
+            "problem": {"type": "material_point",
+                        "name": f"primal_{yield_name}"},
+            "model": {"name": "small_rate_elastic_plastic",
+                      "def_type": "full_3d"},
+            "parameters": params,
+            "deformation": {"history_file": str(tmp_path / "F.npy")},
+            "solver": {"newton": {}},
+            "output": {"path": str(tmp_path / side)},
+        }
+        (tmp_path / f"{side}.yaml").write_text(yaml.safe_dump(deck))
+        outs[side] = tmp_path / side
+    assert _in(tmp_path, jax_main, ["primal", "jax.yaml"]) == 0
+    argv = sys.argv
+    sys.argv = ["cmad_tpu_torch", "primal", "port.yaml", "--device", "cpu"]
+    try:
+        with pytest.raises(SystemExit) as done:
+            _in(tmp_path, runpy.run_module, "cmad_tpu_torch",
+                run_name="__main__")
+    finally:
+        sys.argv = argv
+    assert done.value.code == 0
+    port, ref = outs["port"], outs["jax"]
+    names = sorted(p.name for p in ref.glob("*.npy"))
+    assert names == sorted(p.name for p in port.glob("*.npy"))
+    assert {"cauchy.npy", "xi.npy"} <= set(names)
+    for name in names:
+        a, b = np.load(port / name), np.load(ref / name)
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-12 * max(np.abs(b).max(), 1e-300))
+    assert np.load(port / "xi.npy")[-1, 6] > 0.0      # the ramp yielded
+    log, log_ref = (json.loads((d / "solver.json").read_text())
+                    for d in (port, ref))
+    assert [e["iters"] for e in log] == [e["iters"] for e in log_ref]

@@ -232,9 +232,18 @@ def test_later_effective_stresses_raise_naming_their_slice():
     # test_torch_hosford_return.py holds it to cmad_tpu's)
     assert conventional_effective_stress_fun("hosford") \
         is hosford_effective_stress
-    for name in ("hill", "barlat", "hosford_principal"):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            conventional_effective_stress_fun(name)
+    # the anisotropic forms are ported (tests/models/
+    # test_torch_anisotropic_yields.py holds them to cmad_tpu's)
+    from cmad_tpu_torch.models.effective_stress import (
+        barlat_effective_stress,
+        hill_effective_stress,
+        hosford_principal_effective_stress,
+    )
+    assert conventional_effective_stress_fun("hill") is hill_effective_stress
+    assert conventional_effective_stress_fun("barlat") \
+        is barlat_effective_stress
+    assert conventional_effective_stress_fun("hosford_principal") \
+        is hosford_principal_effective_stress
     with pytest.raises(NotImplementedError, match="unknown"):
         conventional_effective_stress_fun("tresca")
 

@@ -148,9 +148,20 @@ def test_hosford_effective_stress_matches_jax(a):
 
 
 def test_other_anisotropic_forms_name_item_21():
-    for name in ("hill", "barlat", "hosford_principal"):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            conventional_effective_stress_fun(name)
+    """The other anisotropic forms are in the dispatch table beside the
+    diagonal Hosford one; an unknown name still raises."""
+    from cmad_tpu_torch.models.effective_stress import (
+        barlat_effective_stress,
+        hill_effective_stress,
+        hosford_principal_effective_stress,
+    )
+    for name, fun in (("hill", hill_effective_stress),
+                      ("barlat", barlat_effective_stress),
+                      ("hosford_principal",
+                       hosford_principal_effective_stress)):
+        assert conventional_effective_stress_fun(name) is fun
+    with pytest.raises(NotImplementedError, match="unknown"):
+        conventional_effective_stress_fun("tresca")
 
 
 @pytest.fixture(scope="module")

@@ -5,8 +5,12 @@ CPU in float64 with the sparse-direct solve.
 The deck is ``examples/notch_hosford.yaml`` with the stepped driver (the
 configuration of the at-scale records in ``benchmarks/notch_hosford/``)
 and the effective stress of ``--effective-stress``: ``J2`` (the default)
-swaps J2 in, ``hosford`` keeps the deck's Hosford with a = 100;
-``--max-iters`` sets its global Newton cap. It prints one JSON object:
+swaps J2 in, ``hosford`` keeps the deck's Hosford with a = 100, and
+``hosford_principal`` takes ``examples/notch_hosford_principal.yaml``
+instead (the frame-invariant Hosford, a = 100; otherwise the same deck);
+``--max-iters`` sets its global Newton cap, ``--steps N`` keeps the
+deck's first N load steps and ``--step-size S`` sets their size (the
+deck: 1.0, t = S, 2 S, ...). It prints one JSON object:
 after each step ||U|| and max |alpha|, the step's residual pair, and the
 mesh's sizes. ``chip_smoke.py`` holds the port on the card against these
 numbers.
@@ -30,6 +34,16 @@ dJ/dc / Y.
 
     env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
         --mesh notch_h0.015.exo --max-iters 50 --gradient
+
+The principal-Hosford deck as written (480 tets, four steps, the deck's
+cap of 15) with its gradient, and its first step at 47,628 tets:
+
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.080.exo --effective-stress hosford_principal \\
+        --gradient
+    env JAX_PLATFORMS=cpu python tools/fe_notch_reference.py \\
+        --mesh notch_h0.015.exo --max-iters 50 \\
+        --effective-stress hosford_principal --steps 1
 
 ``--hessian`` adds the Hessian of ``benchmarks/notch_hosford/
 hessian_scale.py``: the same truth, then Y active at 2.3 with no transform
@@ -92,9 +106,16 @@ def main() -> int:
                     help="also J and dJ/dY at Y = 2.6 against the truth")
     ap.add_argument("--hessian", action="store_true",
                     help="also d2J/dY2, J and dJ/dY at Y = 2.3")
-    ap.add_argument("--effective-stress", choices=("J2", "hosford"),
+    ap.add_argument("--effective-stress",
+                    choices=("J2", "hosford", "hosford_principal"),
                     default="J2",
-                    help="J2 swapped in (the default) or the deck's Hosford")
+                    help="J2 swapped in (the default), the deck's Hosford, "
+                         "or the principal-Hosford deck")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="keep the deck's first N load steps (default: "
+                         "all four)")
+    ap.add_argument("--step-size", type=float, default=None,
+                    help="the load steps' size (default: the deck's 1.0)")
     ap.add_argument("--weight", type=float, default=1.0e6,
                     help="the QoI's weight (calibrate_scale.py: 1e6)")
     ap.add_argument("--model", choices=("plastic", "elastic"),
@@ -123,7 +144,10 @@ def main() -> int:
     from cmad_tpu.cli.fe_subcommands import _nls_settings
     from cmad_tpu.fem.driver import fe_quasistatic_drive_stepped
 
-    deck = yaml.safe_load((REPO / "examples/notch_hosford.yaml").read_text())
+    name = ("notch_hosford_principal.yaml"
+            if args.effective_stress == "hosford_principal"
+            else "notch_hosford.yaml")
+    deck = yaml.safe_load((REPO / "examples" / name).read_text())
     deck.pop("output")
     deck["discretization"]["mesh file"] = str(REPO / "examples/meshes"
                                               / args.mesh)
@@ -133,6 +157,10 @@ def main() -> int:
     elif args.effective_stress == "J2":
         deck["residuals"]["local residual"]["materials"]["block_1"][
             "plastic"]["effective stress"] = {"J2": {}}
+    if args.steps is not None:
+        deck["discretization"]["num steps"] = args.steps
+    if args.step_size is not None:
+        deck["discretization"]["step size"] = args.step_size
     if args.loads:
         from chip_smoke import loaded_deck
 
@@ -163,6 +191,8 @@ def main() -> int:
     print(json.dumps({
         **grad,
         "mesh": args.mesh, "max_iters": args.max_iters,
+        "steps": len(state.U_history) - 1,
+        "t": [float(t) for t in bundle.t_schedule[1:]],
         **({"model": "elastic", "elastic_stress": args.elastic_stress}
            if elastic else {"effective_stress": args.effective_stress}),
         **({"loads": {k: deck[k] for k in ("surface flux bcs",
